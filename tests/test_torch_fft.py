@@ -18,7 +18,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def tables():
-    return jf.make_tables(), tf.make_tables()
+    return jf.make_tables(), tf.make_tables(device="cpu")
 
 
 @pytest.mark.parametrize("hi", [32768, 4096, 64])

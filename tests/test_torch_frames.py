@@ -68,8 +68,8 @@ def captured(monkeypatch_module):
         return res
 
     monkeypatch_module.setattr(tf, "frames_step", recording)
-    step = tf.FusedAecm(FS, 2, use_kernel=False)
-    st = tf.create_fused(B, FS)
+    step = tf.FusedAecm(FS, 2, use_kernel=False, device="cpu")
+    st = tf.create_fused(B, FS, device="cpu")
     st = st._replace(core=tf._to_circular_far(st.core))
     head = 0
     for s in range(N_STEPS):
@@ -151,7 +151,7 @@ def test_kernel_leaf_order_matches_core_state():
     src = (Path(tf.__file__).parent / "csrc" / "frames.cu").read_text()
     body = re.search(r"enum Leaf \{(.*?)N_LEAVES", src, re.S).group(1)
     names = [n.strip() for n in body.split(",") if n.strip()]
-    core = tf.create_fused(2, FS).core
+    core = tf.create_fused(2, FS, device="cpu").core
     paths = [p.replace("de_farend.", "fe_").replace("de_near.", "ne_").upper()
              for p, _ in fused_kernel._core_leaves(core)]
     assert names == paths

@@ -104,8 +104,8 @@ def port_run():
     mp = pytest.MonkeyPatch()
     mp.setattr(ring_kernels, "ring_multi_pass", recording)
     try:
-        fin, out = tf.run_streams_fused(tf.create_fused(B, FS), far, near,
-                                        FS, ms)
+        fin, out = tf.run_streams_fused(tf.create_fused(B, FS, device="cpu"),
+                                        far, near, FS, ms)
     finally:
         mp.undo()
     return fin, out.numpy(), n_writes
@@ -114,9 +114,10 @@ def port_run():
 @pytest.mark.parametrize("fs", [8000, 16000])
 def test_create_fused_matches_jax(fs):
     want = convert.fused_state_from_numpy(
-        jax.tree_util.tree_map(np.asarray, jf.create_fused(B, fs)))
-    for (path, a), (_, b) in zip(_np_leaves(tf.create_fused(B, fs)),
-                                 _np_leaves(want)):
+        jax.tree_util.tree_map(np.asarray, jf.create_fused(B, fs)),
+        device="cpu")
+    got = tf.create_fused(B, fs, device="cpu")
+    for (path, a), (_, b) in zip(_np_leaves(got), _np_leaves(want)):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         np.testing.assert_array_equal(a, b, err_msg=path)
 
@@ -125,7 +126,8 @@ def test_convert_round_trip_keeps_jax_leaves():
     """JAX state -> port -> numpy gives back every JAX leaf, dtype and
     all (uint32 leaves travel as int64 carriers)."""
     jst = jax.tree_util.tree_map(np.asarray, jf.create_fused(B, FS))
-    back = convert.fused_state_to_numpy(convert.fused_state_from_numpy(jst))
+    back = convert.fused_state_to_numpy(
+        convert.fused_state_from_numpy(jst, device="cpu"))
     jl = jax.tree_util.tree_leaves(jst)
     bl = [x for _, x in tree_leaves_with_path(back)]
     assert len(jl) == len(bl)
@@ -138,7 +140,7 @@ def test_from_fused_state_matches_jax():
     """The fused -> batch-leading layout conversion (far history unpacked
     to 65 bins; the port keeps it int32 where JAX has uint16)."""
     jst = jf.from_fused_state(jf.create_fused(B, FS))
-    got = tf.from_fused_state(tf.create_fused(B, FS))
+    got = tf.from_fused_state(tf.create_fused(B, FS, device="cpu"))
     jl = jax.tree_util.tree_leaves(jst)
     tl = [x for _, x in tree_leaves_with_path(got)]
     assert len(jl) == len(tl)
@@ -153,7 +155,7 @@ def test_run_streams_fused_outputs_match_jax(jax_run, port_run):
 
 
 def test_run_streams_fused_state_matches_jax(jax_run, port_run):
-    want = convert.fused_state_from_numpy(jax_run[0])
+    want = convert.fused_state_from_numpy(jax_run[0], device="cpu")
     for (path, a), (_, b) in zip(_np_leaves(port_run[0]), _np_leaves(want)):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         np.testing.assert_array_equal(a, b, err_msg=f"state leaf {path}")
@@ -163,10 +165,10 @@ def test_bench_scene_matches_jax(jax_runner):
     """bench.py's scene (every stream alike, a fixed sound-card delay)."""
     far, near, ms = _bench_scene()
     jfin, jout = jax_runner(far, near, ms)
-    fin, out = tf.run_streams_fused(tf.create_fused(B, FS), far, near, FS,
-                                    40)
+    fin, out = tf.run_streams_fused(tf.create_fused(B, FS, device="cpu"),
+                                    far, near, FS, 40)
     np.testing.assert_array_equal(out.numpy(), jout)
-    want = convert.fused_state_from_numpy(jfin)
+    want = convert.fused_state_from_numpy(jfin, device="cpu")
     for (path, a), (_, b) in zip(_np_leaves(fin), _np_leaves(want)):
         assert a.dtype == b.dtype and a.shape == b.shape, path
         np.testing.assert_array_equal(a, b, err_msg=f"state leaf {path}")
@@ -197,7 +199,9 @@ def test_golden_file_is_this_scene_and_the_ports_answer(port_run):
 def test_import_leaves_jax_out():
     code = ("import sys; import webrtc_aecm_tpu_torch, "
             "webrtc_aecm_tpu_torch.fused_kernel, webrtc_aecm_tpu_torch.convert,"
-            " webrtc_aecm_tpu_torch.ops.ring_kernels; "
+            " webrtc_aecm_tpu_torch.ops.ring_kernels, "
+            "webrtc_aecm_tpu_torch.ops.fft, "
+            "webrtc_aecm_tpu_torch.parallel.batch; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -216,11 +220,12 @@ def test_out_of_scope_raises(kwargs, what):
     fs = kwargs.pop("sample_rate", FS)
     x = np.zeros((2, n), np.int16)
     with pytest.raises(NotImplementedError, match=what):
-        tf.run_streams_fused(tf.create_fused(2, fs), x, x, fs, **kwargs)
+        tf.run_streams_fused(tf.create_fused(2, fs, device="cpu"), x, x, fs,
+                             **kwargs)
 
 
 def test_lookahead_capacity_above_one_raises():
-    st = tf.create_fused(2, FS)
+    st = tf.create_fused(2, FS, device="cpu")
     dn = st.core.de_near
     st = st._replace(core=st.core._replace(de_near=dn._replace(
         binary_history=torch.zeros((4, 2), dtype=torch.int64))))

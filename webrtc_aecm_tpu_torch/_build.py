@@ -1,10 +1,12 @@
 """Build the CUDA kernels of csrc/ with nvcc and load them with ctypes.
 
 The sources (`csrc/*.cu`, `csrc/*.cuh`) compile into one shared library
-with a plain C interface:
+with a plain C interface.  Each `.cu` compiles on its own, all at once
+(one nvcc process each), then one link:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v -o <lib> csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v -c -o <src>.o csrc/<src>.cu
+    nvcc -shared -o <lib> <src>.o ...
 
 `--fmad=false` keeps nvcc from contracting the delay estimator's float32
 `a*b + c` into FMAs, so the kernel rounds like the plain PyTorch version.
@@ -26,8 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_info = {}      # filled by load_library: path, seconds, ptxas report
@@ -63,18 +64,33 @@ def build() -> Path:
         build_info["path"] = str(so)
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + [
-        str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen(
+            [nvcc] + NVCC_FLAGS + ["-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    reports = [proc.communicate()[1] for _, proc in jobs]  # wait for all
+    for (_, proc), err in zip(jobs, reports):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+    tmp = so.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp)]
+                         + [str(obj) for obj, _ in jobs],
+                         capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    so.with_suffix(".ptxas.txt").write_text(res.stderr)
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                           f"{res.stderr}")
+    for obj, _ in jobs:
+        obj.unlink()
+    seconds = time.perf_counter() - t0
+    report = "".join(reports)
+    so.with_suffix(".ptxas.txt").write_text(report)
     os.replace(tmp, so)
     build_info.update(path=str(so), seconds=seconds, cached=False,
-                      ptxas=res.stderr)
+                      ptxas=report)
     return so
 
 
@@ -87,6 +103,10 @@ def load_library():
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.aecm_ring_multi_pass.argtypes = [vp] * 6 + [ci] * 4 + [vp]
     lib.aecm_ring_multi_pass.restype = ci
+    lib.aecm_ring_gather.argtypes = [vp] * 3 + [ci] * 3 + [vp]
+    lib.aecm_ring_gather.restype = ci
+    lib.aecm_ring_write.argtypes = [vp] * 4 + [ci] * 3 + [vp]
+    lib.aecm_ring_write.restype = ci
     lib.aecm_frames_step.argtypes = ([ctypes.POINTER(vp), ci] + [vp] * 10
                                      + [ci] * 4 + [vp])
     lib.aecm_frames_step.restype = ci

@@ -1,10 +1,12 @@
-"""Control layer: state, configuration, delay and startup governance.
+"""Control layer: state, configuration, buffering, startup governance.
 
-Port of the parts of webrtc_aecm_tpu/control.py (reference: aecm/
-echo_control_mobile.{h,cc}) that the fused serving path uses: the state
-tuple, `create`/`set_config`, and the three elementwise pointer machines
-(`_delay_comp`, `_est_buf_delay`, `_startup_machine`).  They work on any
-container with the control fields, batched or not, as in the JAX package.
+Port of webrtc_aecm_tpu/control.py (reference: aecm/echo_control_mobile.
+{h,cc}): the state tuple, `create`/`set_config`, the echo-path accessors,
+and `buffer_farend` / `process` of the batch-major engine, which take a
+batch of streams (leaves (B, ...)) where the JAX functions are vmapped.
+The three elementwise pointer machines (`_delay_comp`, `_est_buf_delay`,
+`_startup_machine`) work on any container with the control fields, batched
+or not; the fused serving path shares them.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import numpy as np
 import torch
 
 from . import core as core_mod
+from . import _device
 from . import defines as D
 from .ops import ring_buffer as rbuf, spl
 
@@ -64,7 +67,10 @@ _SUPGAIN_TABLE = _supgain_table()
 
 def create(sample_rate: int = 8000, device=None) -> AecmState:
     """WebRtcAecm_Create + WebRtcAecm_Init (echo_control_mobile.cc:89-191)
-    with the default config {cngMode=on, echoMode=3}."""
+    with the default config {cngMode=on, echoMode=3}, on `device` (the
+    CUDA card unless the caller asks for another)."""
+    device = _device.resolve(device)
+
     def s(v):
         return torch.tensor(v, dtype=I32, device=device)
 
@@ -206,3 +212,126 @@ def _startup_machine(state, n_blocks_10ms: int, mult: int):
     ec_startup = torch.where(enable_eq | enable_gt, 0,
                              state.ec_startup).to(I32)
     return state._replace(farend_buf=farend_buf, ec_startup=ec_startup)
+
+
+def get_echo_path(state: AecmState):
+    """WebRtcAecm_GetEchoPath (echo_control_mobile.cc:506-528)."""
+    return state.core.channel_stored
+
+
+def init_echo_path(state: AecmState, echo_path) -> AecmState:
+    """WebRtcAecm_InitEchoPath (echo_control_mobile.cc:481-504)."""
+    return state._replace(core=core_mod.init_echo_path(state.core, echo_path))
+
+
+def buffer_farend(state: AecmState, farend, mult: int = 1) -> AecmState:
+    """WebRtcAecm_BufferFarend (echo_control_mobile.cc:215-234) for a
+    batch: farend (B, 80 * mult) int32.  One jitter-ring write
+    (ring_kernels.ring_write); on the card it updates the ring in place."""
+    comped = _delay_comp(state, mult)
+    # _delay_comp moves only the read pointer and the delay_change flag
+    enabled = state.ec_startup == 0
+    fb = state.farend_buf
+    fb = fb._replace(
+        read_pos=torch.where(enabled, comped.farend_buf.read_pos,
+                             fb.read_pos),
+        rw_wrap=torch.where(enabled, comped.farend_buf.rw_wrap, fb.rw_wrap))
+    return state._replace(
+        farend_buf=rbuf.write(fb, farend.to(I32)),
+        delay_change=torch.where(enabled, comped.delay_change,
+                                 state.delay_change))
+
+
+def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
+            ms_in_sndcard_buf, sample_rate: int,
+            opts: core_mod.Options = core_mod.DEFAULT_OPTIONS):
+    """WebRtcAecm_Process (echo_control_mobile.cc:236-408) for a batch.
+
+    nearend_noisy / nearend_clean: (B, out_len) int32 (clean may be None);
+    out_len is 80 or 160; ms_in_sndcard_buf a scalar or (B,), clamped to
+    [0, 500] + 10.  Returns (state, out (B, out_len) int32, warning (B,)).
+
+    As in the JAX package both branches run for every stream and are
+    merged: the startup machine, and the enabled frames gated by
+    run_mask = not in startup.  So every call reads the jitter ring once
+    per frame (ring_kernels.ring_gather), in startup too."""
+    core_mod._check_options(opts)
+    mult = sample_rate // 8000
+    n_frames = out_len // D.FRAME_LEN
+    n_blocks_10ms = n_frames // mult
+    has_clean = nearend_clean is not None
+    F = D.FRAME_LEN
+
+    ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32,
+                         device=state.ec_startup.device).expand_as(
+                             state.ec_startup)
+    warn = torch.where((ms < 0) | (ms > 500),
+                       D.AECM_BAD_PARAMETER_WARNING, 0).to(I32)
+    state = state._replace(ms_in_sndcard_buf=(ms.clamp(0, 500) + 10
+                                              ).to(I32))
+    in_startup = state.ec_startup != 0
+    run_mask = ~in_startup
+    started = _startup_machine(state, n_blocks_10ms, mult)
+
+    # --- enabled branch, gated per stream by run_mask ---
+    est_idx = 0 if sample_rate == 8000 else 1
+    noisy = nearend_noisy.to(I32)
+    clean = nearend_clean.to(I32) if has_clean else None
+    ran, outs = state, []
+    for i in range(n_frames):
+        filled = torch.div(rbuf.available_read(ran.farend_buf), F,
+                           rounding_mode="floor")
+        have_data = (filled > 0) & run_mask
+        frame, read_buf = rbuf.read(ran.farend_buf, F)
+        fb = ran.farend_buf
+        old_i = ran.farend_old[:, i]
+        farend = torch.where(have_data[:, None], frame, old_i)
+        farend_old = torch.stack(
+            [torch.where(run_mask[:, None], farend, old_i) if r == i
+             else ran.farend_old[:, r] for r in range(2)], dim=1)
+        ran = ran._replace(
+            farend_buf=fb._replace(
+                read_pos=torch.where(have_data, read_buf.read_pos,
+                                     fb.read_pos),
+                rw_wrap=torch.where(have_data, read_buf.rw_wrap,
+                                    fb.rw_wrap)),
+            farend_old=farend_old)
+        if i == est_idx:
+            # _est_buf_delay touches only the ring pointers and the
+            # delay-governance scalars
+            est = _est_buf_delay(ran, mult)
+            fb = ran.farend_buf
+            ran = ran._replace(
+                farend_buf=fb._replace(
+                    read_pos=torch.where(run_mask, est.farend_buf.read_pos,
+                                         fb.read_pos),
+                    rw_wrap=torch.where(run_mask, est.farend_buf.rw_wrap,
+                                        fb.rw_wrap)),
+                **{f: torch.where(run_mask, getattr(est, f), getattr(ran, f))
+                   for f in ("filt_delay", "time_for_delay_change",
+                             "known_delay", "last_delay_diff")})
+        # The reference extraction never forwards the control-layer
+        # knownDelay into the core (echo_control_mobile.cc:390-391).
+        core, out_frame = core_mod.process_frame(
+            ran.core, farend, noisy[:, i * F:(i + 1) * F],
+            None if clean is None else clean[:, i * F:(i + 1) * F],
+            mult=mult, opts=opts, run_mask=run_mask)
+        ran = ran._replace(core=core)
+        outs.append(out_frame)
+
+    # --- merge: the enabled branch is self-gated, so only the fields that
+    # the startup machine writes are selected ---
+    out = torch.where(in_startup[:, None],
+                      noisy if clean is None else clean,
+                      torch.cat(outs, dim=-1))
+    fb = ran.farend_buf
+    state = ran._replace(
+        farend_buf=fb._replace(
+            read_pos=torch.where(in_startup, started.farend_buf.read_pos,
+                                 fb.read_pos),
+            rw_wrap=torch.where(in_startup, started.farend_buf.rw_wrap,
+                                fb.rw_wrap)),
+        **{f: torch.where(in_startup, getattr(started, f), getattr(ran, f))
+           for f in ("ec_startup", "check_buff_size", "check_buf_size_ctr",
+                     "counter", "sum", "first_val", "buf_size_start")})
+    return state, out, warn

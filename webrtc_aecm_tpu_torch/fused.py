@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from . import _device
 from . import control
 from . import core as core_mod
 from . import defines as D
@@ -98,6 +99,7 @@ def _tables_np(n_draws: int):
 
 
 def make_tables(device=None, n_slots: int = 5) -> Tables:
+    device = _device.resolve(device)
     arrs = _tables_np(n_slots * D.PART_LEN)
     return Tables(**{k: torch.tensor(v, device=device)
                      for k, v in arrs.items()})
@@ -142,7 +144,7 @@ def from_fused_core(core_f, template=None):
     """Inverse of to_fused_core; `template` (a one-stream CoreState)
     supplies the trailing shapes.  far_history comes back as int32 bins."""
     if template is None:
-        template = core_mod.create_core(8000)
+        template = core_mod.create_core(8000, device="cpu")
     template = template._replace(far_history=torch.zeros(
         (D.MAX_DELAY, FAR_HIST_ROWS), dtype=I32))
 
@@ -205,14 +207,6 @@ def _argmin0(v):
     iota = _iota_col(v.shape[0], v.device).expand_as(v)
     idx = torch.where(v == mn, iota, 2 ** 30).amin(dim=0, keepdim=True)
     return mn, idx.to(I32)
-
-
-def _popcount(v):
-    """Population count of uint32 carriers (int64) -> int32."""
-    v = v - ((v >> 1) & 0x55555555)
-    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
-    v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) & spl.MASK32) >> 24).to(I32)
 
 
 def _zeros_row(x):
@@ -316,9 +310,9 @@ def _binary_spectrum_fix_f(spectrum, mean_spectrum, q_domain, initialized):
 def _add_far_spectrum_fix_f(farend: de.FarendState, spectrum, far_q):
     bits, mean, inited = _binary_spectrum_fix_f(
         spectrum, farend.mean_spectrum, far_q, farend.spectrum_initialized)
-    return de.FarendState(_shift_in(farend.binary_history, bits),
-                          _shift_in(farend.bit_counts, _popcount(bits)),
-                          mean, inited)
+    return de.FarendState(
+        _shift_in(farend.binary_history, bits),
+        _shift_in(farend.bit_counts, spl.popcount_u32(bits)), mean, inited)
 
 
 def _process_binary_spectrum_f(near: de.NearState, farend: de.FarendState,
@@ -329,7 +323,7 @@ def _process_binary_spectrum_f(near: de.NearState, farend: de.FarendState,
     history_size = near.bit_counts.shape[0]
     assert near.binary_history.shape[0] == 1, "lookahead capacity > 1"
     near = near._replace(binary_history=bits)
-    bit_counts = _popcount(bits ^ farend.binary_history)
+    bit_counts = spl.popcount_u32(bits ^ farend.binary_history)
 
     bit_count_q9 = bit_counts << 9
     shifts = D.SHIFTS_AT_ZERO - ((D.SHIFTS_LINEAR_SLOPE * farend.bit_counts)
@@ -1163,6 +1157,8 @@ def from_fused_state(fstate: FusedState) -> control.AecmState:
 
 def create_fused(n_streams: int, sample_rate: int = 8000, cng_mode: int = 1,
                  echo_mode: int = 3, device=None) -> FusedState:
+    """N fresh streams in the fused layout, on `device` (the CUDA card
+    unless the caller asks for another)."""
     from .parallel import batch as pbatch
     return to_fused_state(pbatch.create_batch(n_streams, sample_rate,
                                               cng_mode, echo_mode,
@@ -1274,6 +1270,7 @@ class FusedAecm(nn.Module):
         super().__init__()
         cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
         _check_envelope(sample_rate, cps)
+        device = _device.resolve(device)
         self.sample_rate = sample_rate
         self.cps = cps
         self.use_kernel = use_kernel

@@ -46,8 +46,8 @@ def _leaf_layout():
     """(rows, dtype) of each core leaf, in kernel order, from a fresh
     one-stream state."""
     from .fused import create_fused
-    return tuple((x.shape[0], x.dtype)
-                 for _, x in _core_leaves(create_fused(1, 16000).core))
+    one = create_fused(1, 16000, device="cpu")
+    return tuple((x.shape[0], x.dtype) for _, x in _core_leaves(one.core))
 
 
 def frames_kernel_call(core, t, far_frames, noisy_frames, phase_all,

@@ -135,6 +135,14 @@ def shl_i32(x, c):
     return wrap32(x.to(I64) << (_count(c, x).to(I64) & 31))
 
 
+def popcount_u32(v):
+    """Population count of uint32 carriers (int64) -> int32."""
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return (((v * 0x01010101) & MASK32) >> 24).to(I32)
+
+
 def mul_i64_shift_right(x, mult: int, shift: int):
     """(int64(x) * mult) >> shift, the echoFilt IIR of aecm_core_c.cc:524
     ((int64{diff} * 50) >> 8); the result always fits int32."""
