@@ -23,16 +23,22 @@ final line):
      batch     package's answers in tests/data/torch_golden_batch.npz, for
                each configuration there (8/16 kHz, single/clean input)
   7. main      the same 16 kHz desync scene through run_streams: kernel path
-     batch     == plain path, exactly 100 ring_write and 200 ring_gather
-               launches, and output and state == the fused engine's (phase 5)
+     batch     == plain path, exactly 100 ring_write and 100 ring_read
+               launches (one of each per 10 ms chunk), and output and state
+               == the fused engine's (phase 5)
   8. 8 kHz     4096 streams x 0.5 s at 8 kHz with a clean near input through
-     clean     run_streams: kernel path == plain path, 50 writes, 50 gathers
+     clean     run_streams: kernel path == plain path, 50 writes, 50 reads
   9. timing    streams served at 1x real time on each engine's kernel and
                plain paths (CUDA events); a batch-major chunk's kernel
                launches and device work (torch.profiler); each kernel's time
-               per launch (CUDA events, and its device time alone from the
-               profiler) beside its plain version's, its bound and, where
-               one PyTorch call computes the same function, that call's time
+               per launch (CUDA events, its wrapper's host time alone, and
+               its device time alone from the profiler) beside its plain
+               version's, its bound and, where PyTorch calls compute the
+               same function, their time; the launch floor (an empty kernel
+               through the same binding); what the stream handle, an
+               argument check and the output allocations cost the host
+The kernels JSON keeps the names of the TPU kernels: `ring_gather` is the
+read kernel (ring_kernels.ring_read), which took the gather over.
 The last three lines are the kernels JSON, the card, and the device JSON.
 """
 from __future__ import annotations
@@ -170,13 +176,13 @@ class PlainRing:
     def __enter__(self):
         from webrtc_aecm_tpu_torch.ops import ring_buffer, ring_kernels
         self.rk = ring_kernels
-        self.orig = (ring_kernels.ring_gather, ring_kernels.ring_write)
-        ring_kernels.ring_gather = ring_buffer._contig_read
-        ring_kernels.ring_write = ring_buffer._contig_write
+        self.orig = (ring_kernels.ring_read, ring_kernels.ring_write)
+        ring_kernels.ring_read = ring_buffer.read_frames_plain
+        ring_kernels.ring_write = ring_buffer.write_plain
         return self
 
     def __exit__(self, *exc):
-        self.rk.ring_gather, self.rk.ring_write = self.orig
+        self.rk.ring_read, self.rk.ring_write = self.orig
         return False
 
 
@@ -193,6 +199,20 @@ def cuda_ms(fn, n_iter):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n_iter
+
+
+def host_us(torch, fn, n_iter=1000):
+    """Host microseconds per call of fn: the host's clock around n_iter
+    back-to-back calls, none of which waits for the card; one synchronise
+    after the clock has stopped."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_iter):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n_iter * 1e6
 
 
 def device_events(torch, fn):
@@ -317,19 +337,41 @@ def ring_case(torch, dev, b, cps, clamp_frac, rng):
 
 
 def ring_io_case(torch, dev, b, n, rng):
-    """Inputs of ring_gather / ring_write at main-path shapes, with the
-    edge cases: positions resting at the capacity, writes of 0, partial
-    and full counts, values outside the int16 range."""
+    """Jitter rings for ring_write / ring_read at main-path shapes, as a
+    consistent (data, read_pos, write_pos, rw_wrap), with the edge cases by
+    stream index: every 7th a read position resting at the capacity, every
+    5th a full ring (a write of 0), every 11th fewer than 80 readable
+    samples, every 23rd an empty ring, every 13th exactly n free slots up
+    to the ring's end (a write of exactly the margin), every 17th n / 2 (a
+    write that wraps); elsewhere random fills, three in ten short of n
+    free slots (clamped writes).  Also values outside the int16
+    range, and a gate that is false on every 4th stream."""
     cap = 4000
-    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
-    data = t(rng.integers(-32768, 32768, (b, cap)).astype(np.int16))
-    pos = rng.integers(0, cap + 1, b).astype(np.int32)
-    pos[::7] = cap
-    n_write = rng.integers(0, n + 1, b).astype(np.int32)
-    n_write[::5] = 0
-    n_write[1::5] = n
-    values = rng.integers(-70000, 70000, (b, n)).astype(np.int32)
-    return data, t(pos), t(values), t(n_write)
+    i = np.arange(b)
+    read_pos = rng.integers(0, cap, b)
+    fill = rng.integers(0, cap + 1, b)
+    clamped = rng.random(b) < 0.3
+    fill[clamped] = cap - rng.integers(1, n, b)[clamped]
+    read_pos[i % 7 == 0] = cap
+    fill[i % 5 == 0] = cap
+    fill[i % 11 == 0] = rng.integers(0, 80, b)[i % 11 == 0]
+    fill[i % 23 == 0] = 0
+    for every, margin in ((13, n), (17, n // 2)):
+        sel = i % every == 0         # write_pos = cap - margin, room for n
+        fill[sel] = rng.integers(0, cap - n + 1, b)[sel]
+        read_pos[sel] = cap - margin - fill[sel]
+    end = read_pos + fill
+    write_pos = np.where(end > cap, end - cap, end)
+    rw_wrap = (end > cap).astype(np.int32)
+    # a full ring whose write position came to rest at the capacity
+    rest = (i % 35 == 0)
+    read_pos[rest], write_pos[rest], rw_wrap[rest] = cap, cap, 1
+    t = lambda x, dt: torch.as_tensor(np.asarray(x, dt), device=dev)  # noqa: E731
+    ring = (t(rng.integers(-32768, 32768, (b, cap)), np.int16),
+            t(read_pos, np.int32), t(write_pos, np.int32),
+            t(rw_wrap, np.int32))
+    values = t(rng.integers(-70000, 70000, (b, n)), np.int32)
+    return ring, values, t(i % 4 != 0, np.bool_)
 
 
 def phase_kernels(torch, dev):
@@ -338,19 +380,42 @@ def phase_kernels(torch, dev):
     worst = {"frames": 0.0, "ring": 0.0, "gather": 0.0, "write": 0.0}
     rng = np.random.default_rng(1)
     for n in (80, 160):
-        data, pos, values, n_write = ring_io_case(torch, dev, B_FULL, n, rng)
-        ref = ring_buffer._contig_read(data, pos, n)
-        got = ring_kernels.ring_gather(data, pos, n)
-        torch.cuda.synchronize()
-        worst["gather"] = max(worst["gather"], compare_trees(
-            f"ring_gather n={n}", got, ref))
-        ref = ring_buffer._contig_write(data, pos, values, n_write)
-        got = ring_kernels.ring_write(data.clone(), pos, values, n_write)
-        torch.cuda.synchronize()
-        worst["write"] = max(worst["write"], compare_trees(
-            f"ring_write n={n}", got, ref))
-        log(f"  ring_gather, ring_write == plain: n={n}, positions at the "
-            "capacity, writes of 0 / partial / full, values outside int16")
+        ring, values, gate = ring_io_case(torch, dev, B_FULL, n, rng)
+        free = ring_buffer.available_write(ring_buffer.RingBuffer(*ring))
+        readable = ring_buffer.available_read(ring_buffer.RingBuffer(*ring))
+        margin = 4000 - ring[2]
+        seen = {"full": free == 0, "clamped": (free > 0) & (free < n),
+                "exactly the margin": (free >= n) & (margin == n),
+                "wrapping": (free >= n) & (margin < n),
+                "short of a frame": readable < 80, "empty": readable == 0,
+                "read position at the capacity": ring[1] == 4000,
+                "write position at the capacity": ring[2] == 4000}
+        missing = [k for k, v in seen.items() if not bool(v.any())]
+        if missing:
+            fail(f"ring case n={n} lacks: {missing}")
+        ref = ring_buffer.write_plain(*ring, values)
+        wide = torch.cat([values, values, values], dim=1)  # strided rows
+        for vals in (values, wide[:, n:2 * n]):
+            got = ring_kernels.ring_write(ring[0].clone(), *ring[1:], vals)
+            torch.cuda.synchronize()
+            worst["write"] = max(worst["write"], compare_trees(
+                f"ring_write n={n}", got, ref))
+        for n_frames in (1, 2):
+            for g in (gate, None):
+                for whole in (True, False):
+                    ref = ring_buffer.read_frames_plain(
+                        *ring, g, 80, n_frames, whole)
+                    got = ring_kernels.ring_read(*ring, g, 80, n_frames,
+                                                 whole)
+                    torch.cuda.synchronize()
+                    worst["gather"] = max(worst["gather"], compare_trees(
+                        f"ring_read n_frames={n_frames} gate="
+                        f"{g is not None} whole_frames={whole}", got, ref))
+        log(f"  ring_write (n={n}; ring, write_pos, rw_wrap) and ring_read "
+            "(1 and 2 frames; frames, have_data, read_pos, rw_wrap) == "
+            "plain: " + ", ".join(seen) + ", gates false "
+            "on a quarter of the streams, values outside int16, strided "
+            "value rows")
     for cps in (2, 1):
         for frac in (0.0, 0.1):
             data, wpos, values, n_write, rpos, n = ring_case(
@@ -498,19 +563,19 @@ def counted_batch_run(torch, dev, far, near, fs, ms, clean=None):
     before it and read just after."""
     from webrtc_aecm_tpu_torch.ops import ring_kernels
     ring_kernels.ring_write.launches = 0
-    ring_kernels.ring_gather.launches = 0
+    ring_kernels.ring_read.launches = 0
     fin, out = run_batch(torch, dev, far, near, fs, ms, clean)
     return fin, out, {"ring_write": ring_kernels.ring_write.launches,
-                      "ring_gather": ring_kernels.ring_gather.launches}
+                      "ring_read": ring_kernels.ring_read.launches}
 
 
 def phase_main_batch(torch, dev, fused_ref):
     from webrtc_aecm_tpu_torch import fused
     far, near, ms = desync_scene(B_FULL, 100, 60, 5, 64)
     fin_k, out_k, launches = counted_batch_run(torch, dev, far, near, FS, ms)
-    if launches != {"ring_write": 100, "ring_gather": 200}:
+    if launches != {"ring_write": 100, "ring_read": 100}:
         fail(f"batch main path launches {launches}, expected 100 writes "
-             "and 200 gathers")
+             "and 100 reads (one of each per chunk)")
     with PlainRing():
         fin_p, out_p = run_batch(torch, dev, far, near, FS, ms)
     if out_k.shape != (B_FULL, 100 * CHUNK) or out_k.dtype != torch.int32:
@@ -530,7 +595,7 @@ def phase_clean_8k(torch, dev):
     clean = clean_input(far)
     fin_k, out_k, launches = counted_batch_run(torch, dev, far, near, 8000,
                                                ms, clean)
-    if launches != {"ring_write": 50, "ring_gather": 50}:
+    if launches != {"ring_write": 50, "ring_read": 50}:
         fail(f"8 kHz clean launches {launches}, expected 50 and 50")
     with PlainRing():
         fin_p, out_p = run_batch(torch, dev, far, near, 8000, ms, clean)
@@ -632,40 +697,80 @@ def phase_timing(torch, dev, capture, batch_state):
         bound_ms=bound_ms(ring_pass_bytes(wpos[:1], n_write[:1], n_read)),
         library_ms=None)
 
-    # the batch-major passes on the main path's final jitter rings
+    # the batch-major write and read on the main path's final jitter rings,
+    # at the 16 kHz chunk's shapes: 160 samples written, 2 frames read
     fb = batch_state.farend_buf
-    ring = fb.data.contiguous()
-    b, cap = ring.shape
+    ring = tuple(x.contiguous() for x in fb)
+    b, cap = ring[0].shape
     rng = np.random.default_rng(2)
     vals = torch.as_tensor(rng.integers(-32768, 32768, (b, CHUNK)),
                            dtype=torch.int32, device=dev)
-    n_w = ring_buffer.available_write(fb).clamp(max=CHUNK).contiguous()
-    wp, rp = fb.write_pos.contiguous(), fb.read_pos.contiguous()
-    idx = (rp[:, None].long() + torch.arange(80, device=dev)) % cap
-    gather = lambda: ring_kernels.ring_gather(ring, rp, 80)  # noqa: E731
-    library_gather = lambda: torch.gather(ring, 1, idx)  # noqa: E731
-    per["ring_gather"] = dict(
-        ms=cuda_ms(gather, 100),
-        plain_ms=cuda_ms(lambda: ring_buffer._contig_read(ring, rp, 80),
-                         20),
-        bound_ms=bound_ms(b * 80 * 2 * 2 + b * 4),
-        library_ms=cuda_ms(library_gather, 100))
+    gate = (batch_state.ec_startup == 0).contiguous()
+    n_fr = CHUNK // 80
+    ring_w = ring[0].clone()
+
+    write = lambda: ring_kernels.ring_write(  # noqa: E731
+        ring_w, *ring[1:], vals)
+    read = lambda: ring_kernels.ring_read(  # noqa: E731
+        *ring, gate, 80, n_fr)
+
+    # library yardsticks on precomputed indices: one index_put_ for the
+    # write, one torch.gather per frame for the read
+    n_w = ring_buffer.available_write(fb).clamp(max=CHUNK)
     j = torch.arange(CHUNK, device=dev)
     valid = j[None, :] < n_w[:, None]
-    flat_idx = ((wp[:, None].long() + j) % cap
+    flat_idx = ((ring[2][:, None].long() + j) % cap
                 + torch.arange(b, device=dev)[:, None] * cap)[valid]
     vals16 = vals.to(torch.int16)[valid]
-    ring_w = ring.clone()
     written = int(n_w.sum())
-    write = lambda: ring_kernels.ring_write(ring_w, wp, vals, n_w)  # noqa: E731
     library_write = lambda: ring_w.view(-1).index_put_(  # noqa: E731
         (flat_idx,), vals16)
+    idx, walk, samples_read = [], ring_buffer.RingBuffer(*ring), 0
+    for _ in range(n_fr):
+        idx.append((walk.read_pos[:, None].long()
+                    + torch.arange(80, device=dev)) % cap)
+        samples_read += int(
+            ring_buffer.available_read(walk).clamp(0, 80).sum())
+        _, _, rp_f, rw_f = ring_buffer.read_frames_plain(*walk, gate, 80, 1)
+        walk = walk._replace(read_pos=rp_f, rw_wrap=rw_f)
+    library_read = lambda: [torch.gather(ring[0], 1, ix)  # noqa: E731
+                            for ix in idx]
     per["ring_write"] = dict(
         ms=cuda_ms(write, 100),
-        plain_ms=cuda_ms(lambda: ring_buffer._contig_write(ring, wp, vals,
-                                                           n_w), 20),
-        bound_ms=bound_ms(written * (4 + 2) + b * 8),
+        plain_ms=cuda_ms(lambda: ring_buffer.write_plain(*ring, vals), 20),
+        bound_ms=bound_ms(written * (4 + 2) + (3 + 2) * b * 4),
         library_ms=cuda_ms(library_write, 100))
+    per["ring_gather"] = dict(
+        ms=cuda_ms(read, 100),
+        plain_ms=cuda_ms(lambda: ring_buffer.read_frames_plain(
+            *ring, gate, 80, n_fr), 20),
+        bound_ms=bound_ms(samples_read * 2 + b * n_fr * (80 * 4 + 1)
+                          + (3 + 2) * b * 4 + b),
+        library_ms=cuda_ms(library_read, 100))
+
+    # the launch floor: an empty kernel through the same binding
+    from webrtc_aecm_tpu_torch import _build
+    noop = lambda: _build.launch("aecm_noop", dev.index)  # noqa: E731
+    floor = dict(ms=cuda_ms(noop, 100))
+
+    # each wrapper's host time alone, and what the parts of a wrapper's
+    # host path cost beside the launch itself
+    host = {name: host_us(torch, fn) for name, fn in (
+        ("aecm_noop", noop), ("ring_write", write), ("ring_gather", read),
+        ("ring_multi_pass", multi), ("ring_pass", single),
+        ("library ring_write", library_write),
+        ("library ring_gather", library_read))}
+    host["frames_step"] = host_us(torch, frames, 10)
+    pieces = {name: host_us(torch, fn) for name, fn in (
+        ("a Stream object's handle",
+         lambda: torch.cuda.current_stream(dev).cuda_stream),
+        ("the raw stream handle",
+         lambda: torch._C._cuda_getCurrentRawStream(dev.index)),
+        ("_build.require of one tensor", lambda: _build.require(
+            ring[2], "write_pos", torch.int32, (b,), dev)),
+        ("torch.empty((B, 2, 80))", lambda: torch.empty(
+            (b, 2, 80), dtype=torch.int32, device=dev)),
+        ("torch.empty_like((B,))", lambda: torch.empty_like(ring[2])))}
 
     # the profiler last, so that no CUDA-event time above runs beside it:
     # each kernel's device time alone, and where a batch-major 10 ms chunk
@@ -675,12 +780,16 @@ def phase_timing(torch, dev, capture, batch_state):
             ("frames_step", frames, 5, "frames_step_kernel"),
             ("ring_multi_pass", multi, 20, "ring_multi_pass_kernel"),
             ("ring_pass", single, 20, "ring_multi_pass_kernel"),
-            ("ring_gather", gather, 20, "ring_gather_kernel"),
+            ("ring_gather", read, 20, "ring_read_kernel"),
             ("ring_write", write, 20, "ring_write_kernel")):
         per[name]["device_ms"] = device_ms(torch, fn, n, symbol)
-    for name, fn in (("ring_gather", library_gather),
+        per[name]["host_us"] = host[name]
+    for name, fn in (("ring_gather", library_read),
                      ("ring_write", library_write)):
         per[name]["library_device_ms"] = device_ms(torch, fn, 20)
+        per[name]["library_host_us"] = host["library " + name]
+    floor.update(device_ms=device_ms(torch, noop, 20, "noop_kernel"),
+                 host_us=host["aecm_noop"])
     from webrtc_aecm_tpu_torch._tree import tree_map
     from webrtc_aecm_tpu_torch.parallel import batch
     step = batch.make_chunk_step(FS, device=dev)
@@ -697,7 +806,7 @@ def phase_timing(torch, dev, capture, batch_state):
                      if not k.startswith(("Memcpy", "Memset"))) / n_prof,
         busy_ms=sum(v[1] for v in ev.values()) / 1e3 / n_prof,
         wall_ms=rates["batch-major kernel"][1] * 1e3 / (audio_s * 100))
-    return rates, per, chunk_profile
+    return rates, per, chunk_profile, dict(floor=floor, pieces=pieces)
 
 
 def main():
@@ -762,7 +871,8 @@ def main():
             f"launches {launches_8k} ({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
-        rates, per, prof = phase_timing(torch, dev, capture, batch_state)
+        rates, per, prof, extra = phase_timing(torch, dev, capture,
+                                               batch_state)
         for name, (rate, wall) in rates.items():
             log(f"[timing] {name} path: {rate:.1f} streams at 1x real time "
                 f"({wall * 1000:.3f} ms per 1 s of audio x {B_FULL} "
@@ -774,14 +884,22 @@ def main():
             f"idle {1 - prof['busy_ms'] / prof['wall_ms']:.1%} on {card}")
         def ms_or(x):
             return "not measured" if x is None else f"{x:.4f} ms"
+        floor = extra["floor"]
+        log(f"[timing] launch floor aecm_noop (an empty kernel through the "
+            f"same binding): {floor['ms']:.4f} ms per launch (host "
+            f"{floor['host_us']:.2f} us, device "
+            f"{ms_or(floor['device_ms'])}) on {card}")
         for name, r in per.items():
             lib = ("none" if r["library_ms"] is None else
-                   f"{r['library_ms']:.4f} ms (device "
+                   f"{r['library_ms']:.4f} ms (host "
+                   f"{r['library_host_us']:.2f} us, device "
                    f"{ms_or(r['library_device_ms'])})")
-            log(f"[timing] {name}: {r['ms']:.4f} ms per launch (device "
-                f"{ms_or(r['device_ms'])}), plain {r['plain_ms']:.4f} ms, "
-                f"bound {r['bound_ms']:.5f} ms, library call {lib} "
-                f"(B={B_FULL}) on {card}")
+            log(f"[timing] {name}: {r['ms']:.4f} ms per launch (host "
+                f"{r['host_us']:.2f} us, device {ms_or(r['device_ms'])}), "
+                f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                f"ms, library call {lib} (B={B_FULL}) on {card}")
+        for name, us in extra["pieces"].items():
+            log(f"[timing] host path, {name}: {us:.2f} us per call")
         log(f"[timing] ({time.perf_counter() - t:.2f} s)")
     except SystemExit:
         raise
@@ -795,7 +913,7 @@ def main():
                 "ring_write": max(worst["write"], worst_b, worst_8k)}
     counts = {"frames_step": launches["frames"],
               "ring_multi_pass": launches["ring"],
-              "ring_gather": launches_b["ring_gather"],
+              "ring_gather": launches_b["ring_read"],
               "ring_write": launches_b["ring_write"]}
     where = {"frames_step": ("frames.cu", "webrtc_aecm_tpu/fused.py:1595"),
              "ring_multi_pass": ("ring.cu",

@@ -29,7 +29,7 @@ import torch
 from webrtc_aecm_tpu.parallel import batch as jb
 from webrtc_aecm_tpu_torch import _device, control, convert, core, fused
 from webrtc_aecm_tpu_torch._tree import tree_leaves_with_path
-from webrtc_aecm_tpu_torch.ops import ring_kernels
+from webrtc_aecm_tpu_torch.ops import ring_buffer as rbuf, ring_kernels
 from webrtc_aecm_tpu_torch.parallel import batch as tb
 
 torch.set_num_threads(1)
@@ -71,13 +71,20 @@ def port_runs(golden):
     runs = {}
     for name, (fs, _) in CONFIGS.items():
         far, near, ms, clean = _inputs(golden, name)
-        calls = {"write": [], "gather": []}   # n_write, or the read count
+        calls = {"write": [], "read": []}   # n_write, or the frames read
         mp = pytest.MonkeyPatch()
-        for key, fn in (("write", "ring_write"), ("gather", "ring_gather")):
-            def recording(*args, _orig=getattr(ring_kernels, fn), _k=key):
-                calls[_k].append(args[-1])
-                return _orig(*args)
-            mp.setattr(ring_kernels, fn, recording)
+
+        def write(*args, _orig=ring_kernels.ring_write):
+            calls["write"].append(rbuf.available_write(
+                rbuf.RingBuffer(*args[:4])).clamp(max=args[4].shape[1]))
+            return _orig(*args)
+
+        def read(*args, _orig=ring_kernels.ring_read):
+            calls["read"].append(args[5:7])
+            return _orig(*args)
+
+        mp.setattr(ring_kernels, "ring_write", write)
+        mp.setattr(ring_kernels, "ring_read", read)
         try:
             fin, out = tb.run_streams(tb.create_batch(B, fs, device="cpu"),
                                       far, near, fs, ms, clean=clean)
@@ -131,13 +138,35 @@ def test_run_streams_matches_golden(golden, port_runs, name):
 
 @pytest.mark.parametrize("name", list(CONFIGS))
 def test_ring_passes_per_chunk(port_runs, golden, name):
-    """One jitter-ring write per chunk and one gather per 80-sample frame,
-    in startup too (both branches of Process run for every stream)."""
+    """One jitter-ring write per chunk and one read for all of its
+    80-sample frames, in startup too (both branches of Process run for
+    every stream)."""
     fs = CONFIGS[name][0]
     n_chunks = golden[f"{name}.ms"].shape[0]
     calls = port_runs[name][2]
     assert len(calls["write"]) == n_chunks
-    assert calls["gather"] == [80] * (n_chunks * fs // 8000)
+    assert calls["read"] == [(80, fs // 8000)] * n_chunks
+
+
+def test_long_8k_calls_read_around_est_buf_delay(monkeypatch):
+    """8 kHz with 160-sample calls: _est_buf_delay moves the read pointer
+    between the two frames, so Process reads them in two launches of one
+    frame each (the serving sizes read all their frames in one)."""
+    reads = []
+
+    def read(*args, _orig=ring_kernels.ring_read):
+        reads.append(args[5:7])
+        return _orig(*args)
+
+    monkeypatch.setattr(ring_kernels, "ring_read", read)
+    x = torch.zeros((2, 160), dtype=torch.int32)
+    st = tb.create_batch(2, 8000, device="cpu")
+    control.process(st, x, None, 160, 40, 8000)
+    assert reads == [(80, 1), (80, 1)]
+    del reads[:]
+    control.process(tb.create_batch(2, FS, device="cpu"), x, None, 160, 40,
+                    FS)
+    assert reads == [(80, 2)]
 
 
 def test_scene_clamps_some_ring_writes(port_runs):

@@ -14,6 +14,12 @@ The library goes to build/torch_kernels/ under the repository root, named
 by a hash of the sources and flags, and is built at first use (a second
 call finds it).  The ptxas report (registers, spills) is kept beside it.
 Nothing here runs when the package is imported.
+
+Every kernel wrapper goes through one launch path: `require` checks each
+tensor argument by attribute reads and raises on what the kernel does not
+take (nothing is converted), and `launch` calls the C entry point on
+PyTorch's current stream and raises on its return code.  Neither
+synchronises nor reads a tensor's value on the host.
 """
 from __future__ import annotations
 
@@ -94,26 +100,64 @@ def build() -> Path:
     return so
 
 
+_VP, _CI, _CL = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+# C entry point -> argument types; each also takes the stream, last
+_SIGNATURES = {
+    "aecm_noop": [],
+    "aecm_ring_multi_pass": [_VP] * 6 + [_CI] * 4,
+    "aecm_ring_write": [_VP] * 5 + [_CL] + [_VP] * 2 + [_CI] * 3,
+    "aecm_ring_read": [_VP] * 9 + [_CI] * 5,
+    "aecm_frames_step": [ctypes.POINTER(_VP), _CI] + [_VP] * 10 + [_CI] * 4,
+}
+_entry = {}          # C entry point -> its ctypes function, set at first use
+_raw_stream = None   # device index -> the current stream's handle (an int)
+
+
 def load_library():
-    """The loaded kernel library (built at first use)."""
-    global _lib
+    """The loaded kernel library (built at first use), with every entry
+    point's argument types bound, so that plain ints pass as pointers."""
+    global _lib, _raw_stream
     if _lib is not None:
         return _lib
+    import torch
     lib = ctypes.CDLL(str(build()))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.aecm_ring_multi_pass.argtypes = [vp] * 6 + [ci] * 4 + [vp]
-    lib.aecm_ring_multi_pass.restype = ci
-    lib.aecm_ring_gather.argtypes = [vp] * 3 + [ci] * 3 + [vp]
-    lib.aecm_ring_gather.restype = ci
-    lib.aecm_ring_write.argtypes = [vp] * 4 + [ci] * 3 + [vp]
-    lib.aecm_ring_write.restype = ci
-    lib.aecm_frames_step.argtypes = ([ctypes.POINTER(vp), ci] + [vp] * 10
-                                     + [ci] * 4 + [vp])
-    lib.aecm_frames_step.restype = ci
-    lib.aecm_error_string.argtypes = [ci]
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes + [_VP]
+        fn.restype = _CI
+        _entry[name] = fn
+    lib.aecm_error_string.argtypes = [_CI]
     lib.aecm_error_string.restype = ctypes.c_char_p
+    # CUDA builds of PyTorch give the raw handle without a Stream object
+    _raw_stream = getattr(
+        torch._C, "_cuda_getCurrentRawStream",
+        lambda index: torch.cuda.current_stream(index).cuda_stream)
     _lib = lib
     return lib
+
+
+def require(x, what: str, dtype, shape, device):
+    """Raise unless tensor x is what a kernel takes as it stands: of
+    `dtype` and `shape`, contiguous, on `device`."""
+    if (x.dtype != dtype or x.shape != shape or x.device != device
+            or not x.is_contiguous()):
+        raise ValueError(
+            f"{what} must be a contiguous {tuple(shape)} {dtype} tensor on "
+            f"{device}; got {tuple(x.shape)} {x.dtype} on {x.device}"
+            + ("" if x.is_contiguous() else ", not contiguous"))
+
+
+def launch(name: str, device_index: int, *args):
+    """Call C entry point `name` with `args` and the current stream of CUDA
+    device `device_index`; raise on a non-zero return code.  The library is
+    built and its functions resolved at the first launch."""
+    fn = _entry.get(name)
+    if fn is None:
+        load_library()
+        fn = _entry[name]
+    err = fn(*args, _raw_stream(device_index))
+    if err:
+        check(err, name)
 
 
 def check(err: int, name: str):

@@ -226,7 +226,8 @@ def init_echo_path(state: AecmState, echo_path) -> AecmState:
 
 def buffer_farend(state: AecmState, farend, mult: int = 1) -> AecmState:
     """WebRtcAecm_BufferFarend (echo_control_mobile.cc:215-234) for a
-    batch: farend (B, 80 * mult) int32.  One jitter-ring write
+    batch: farend (B, 80 * mult) int32 (rows may be a column slice of a
+    longer signal).  One jitter-ring write, pointers and all, in one launch
     (ring_kernels.ring_write); on the card it updates the ring in place."""
     comped = _delay_comp(state, mult)
     # _delay_comp moves only the read pointer and the delay_change flag
@@ -237,7 +238,7 @@ def buffer_farend(state: AecmState, farend, mult: int = 1) -> AecmState:
                              fb.read_pos),
         rw_wrap=torch.where(enabled, comped.farend_buf.rw_wrap, fb.rw_wrap))
     return state._replace(
-        farend_buf=rbuf.write(fb, farend.to(I32)),
+        farend_buf=rbuf.write(fb, farend),
         delay_change=torch.where(enabled, comped.delay_change,
                                  state.delay_change))
 
@@ -253,8 +254,10 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
 
     As in the JAX package both branches run for every stream and are
     merged: the startup machine, and the enabled frames gated by
-    run_mask = not in startup.  So every call reads the jitter ring once
-    per frame (ring_kernels.ring_gather), in startup too."""
+    run_mask = not in startup.  So every call reads the jitter ring, in
+    startup too: all of its 80-sample frames in one launch
+    (ring_kernels.ring_read), since nothing between the reads of a call
+    moves the ring's pointers but the reads themselves."""
     core_mod._check_options(opts)
     mult = sample_rate // 8000
     n_frames = out_len // D.FRAME_LEN
@@ -277,25 +280,26 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
     est_idx = 0 if sample_rate == 8000 else 1
     noisy = nearend_noisy.to(I32)
     clean = nearend_clean.to(I32) if has_clean else None
+    # The reads up to and including frame est_idx come before
+    # _est_buf_delay, which moves the read pointer, and nothing else
+    # between them does: they are one launch (at both rates' serving sizes,
+    # all of the call's frames), and any frames after it a second.
+    split = min(est_idx + 1, n_frames)
     ran, outs = state, []
     for i in range(n_frames):
-        filled = torch.div(rbuf.available_read(ran.farend_buf), F,
-                           rounding_mode="floor")
-        have_data = (filled > 0) & run_mask
-        frame, read_buf = rbuf.read(ran.farend_buf, F)
-        fb = ran.farend_buf
+        if i in (0, split):
+            first = i
+            frames, haves, read_buf = rbuf.read_frames(
+                ran.farend_buf, F, (split if i == 0 else n_frames) - i,
+                run_mask)
+            ran = ran._replace(farend_buf=read_buf)
+        have_data = haves[:, i - first]
         old_i = ran.farend_old[:, i]
-        farend = torch.where(have_data[:, None], frame, old_i)
+        farend = torch.where(have_data[:, None], frames[:, i - first], old_i)
         farend_old = torch.stack(
             [torch.where(run_mask[:, None], farend, old_i) if r == i
              else ran.farend_old[:, r] for r in range(2)], dim=1)
-        ran = ran._replace(
-            farend_buf=fb._replace(
-                read_pos=torch.where(have_data, read_buf.read_pos,
-                                     fb.read_pos),
-                rw_wrap=torch.where(have_data, read_buf.rw_wrap,
-                                    fb.rw_wrap)),
-            farend_old=farend_old)
+        ran = ran._replace(farend_old=farend_old)
         if i == est_idx:
             # _est_buf_delay touches only the ring pointers and the
             # delay-governance scalars

@@ -79,7 +79,7 @@ struct Inputs {
   const int* far;        // (320, B) far frames
   const int* noisy;      // (320, B) near frames
   const int* phase;      // (320, B) packed CNG phase rows, per slot
-  const int* run_rows;   // (4, B)
+  const bool* run_rows;  // (4, B)
   const int* win128;     // (128,)
   const int* fwr;        // (7, 128) per-stage per-row twiddles
   const int* fws;        // (7, 128)
@@ -1057,7 +1057,7 @@ extern "C" int aecm_frames_step(void* const* leaves, int n_leaves,
   Leaves lv;
   for (int i = 0; i < N_LEAVES; ++i) lv.p[i] = leaves[i];
   Inputs in{(const int*)far,   (const int*)noisy, (const int*)phase,
-            (const int*)run_rows, (const int*)win128, (const int*)fwr,
+            (const bool*)run_rows, (const int*)win128, (const int*)fwr,
             (const int*)fws,   (int*)out,         (int*)pend_hist,
             (int*)pend_q,      B, head, mult, fpc};
   const int threads = 32;

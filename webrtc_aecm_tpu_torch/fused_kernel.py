@@ -55,7 +55,12 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, phase_all,
                        frames_per_chunk: int, far_head: int):
     """fused.frames_step on CPU tensors; the CUDA frames kernel on CUDA
     tensors, which updates every core leaf in place except far_history and
-    far_q_domains.  Returns (core, out, pend_hist, pend_q)."""
+    far_q_domains.  Returns (core, out, pend_hist, pend_q).
+
+    The kernel takes its arguments as they stand and converts nothing:
+    every core leaf in its layout, far_frames / noisy_frames (n_frames*80,
+    B) and phase_all (320, B) int32, run_rows (n_frames, B) bool, the
+    tables int32, all contiguous and on one device; anything else raises."""
     dev = far_frames.device
     if dev.type == "cpu":
         from .fused import frames_step
@@ -69,36 +74,28 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, phase_all,
     b = far_frames.shape[-1]
     leaves = _core_leaves(core)
     for (path, x), (rows, dtype) in zip(leaves, _leaf_layout()):
-        if (x.device != dev or not x.is_contiguous() or x.dtype != dtype
-                or tuple(x.shape) != (rows, b)):
-            raise ValueError(f"core leaf {path} must be a contiguous "
-                             f"({rows}, {b}) {dtype} tensor on {dev}")
+        _build.require(x, path, dtype, (rows, b), dev)   # a core leaf
     if core.de_near.binary_history.shape[0] != 1:
         raise NotImplementedError("lookahead capacity > 1")
-    ins = [x.to(I32).contiguous() for x in
-           (far_frames, noisy_frames, phase_all, run_rows)]
-    for x, rows in zip(ins, (n_frames * 80, n_frames * 80, 320, n_frames)):
-        if x.shape != (rows, b):
-            raise ValueError(f"input of shape {tuple(x.shape)}, expected "
-                             f"({rows}, {b})")
+    _build.require(far_frames, "far_frames", I32, (n_frames * 80, b), dev)
+    _build.require(noisy_frames, "noisy_frames", I32, (n_frames * 80, b),
+                   dev)
+    _build.require(phase_all, "phase_all", I32, (320, b), dev)
+    _build.require(run_rows, "run_rows", torch.bool, (n_frames, b), dev)
+    for name in ("win128", "fwr", "fws"):
+        x = getattr(t, name)
+        _build.require(x, f"table {name}", I32, x.shape, dev)
     out = torch.empty((n_frames * 80, b), dtype=I32, device=dev)
     pend_hist = torch.empty((5 * 40, b), dtype=I32, device=dev)
     pend_q = torch.empty((5, b), dtype=I32, device=dev)
     ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr()
                                              for _, x in leaves])
-    lib = _build.load_library()
-    tabs = [x.to(I32).contiguous() for x in (t.win128, t.fwr, t.fws)]
-    for x in tabs:
-        if x.device != dev:
-            raise ValueError(f"tables must be on {dev}")
-    err = lib.aecm_frames_step(
-        ptrs, len(leaves), ins[0].data_ptr(), ins[1].data_ptr(),
-        ins[2].data_ptr(), ins[3].data_ptr(), tabs[0].data_ptr(),
-        tabs[1].data_ptr(), tabs[2].data_ptr(), out.data_ptr(),
-        pend_hist.data_ptr(), pend_q.data_ptr(), b, int(far_head),
-        int(mult), int(frames_per_chunk),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "aecm_frames_step")
+    _build.launch(
+        "aecm_frames_step", dev.index, ptrs, len(leaves),
+        far_frames.data_ptr(), noisy_frames.data_ptr(), phase_all.data_ptr(),
+        run_rows.data_ptr(), t.win128.data_ptr(), t.fwr.data_ptr(),
+        t.fws.data_ptr(), out.data_ptr(), pend_hist.data_ptr(),
+        pend_q.data_ptr(), b, far_head, mult, frames_per_chunk)
     _FRAMES.launches += 1
     return core, out, pend_hist, pend_q
 

@@ -1,11 +1,14 @@
 """Fixed-shape ring buffer: pointer math and the plain data passes.
 
 Port of webrtc_aecm_tpu/ops/ring_buffer.py (reference: aecm/ring_buffer.
-{h,c}).  The pointer functions work on any leading batch shape; `write` and
-`read` take a batch of rings, data (B, C) and pointers (B,), the JAX
-functions under `jax.vmap`.  Their data passes go through the wrappers of
-ops/ring_kernels.py (`ring_write`, `ring_gather`): the CUDA kernels on the
-card, the plain `_contig_write`/`_contig_read` below on the CPU.
+{h,c}).  The pointer functions work on any leading batch shape; `write`,
+`read` and `read_frames` take a batch of rings, data (B, C) and pointers
+(B,), the JAX functions under `jax.vmap`.  Each is one call of a wrapper
+of ops/ring_kernels.py (`ring_write`, `ring_read`): on the card one CUDA
+kernel that does the pointer arithmetic and the data pass together, on the
+CPU the plain versions below (`write_plain`, `read_frames_plain`), which
+state the same functions in PyTorch ops and are what the kernels are held
+against.
 
 Semantics replicated exactly, including partial writes clamped to free
 space, negative `move_read_ptr` (buffer stuffing) clamped to free space, the
@@ -92,40 +95,88 @@ def move_read_ptr(rb: RingBuffer, element_count) -> RingBuffer:
 
 def write(rb: RingBuffer, values) -> RingBuffer:
     """WebRtc_WriteBuffer (ring_buffer.c:142-174) on a batch of rings:
-    data (B, C), values (B, n) int32, n static.  The write is clamped to
-    each ring's free space.  On the card the data pass (ring_kernels.
-    ring_write) updates rb.data in place: use the returned ring."""
+    data (B, C) int16, values (B, n) int32, n static.  The write is clamped
+    to each ring's free space.  One call of ring_kernels.ring_write; on the
+    card it updates rb.data in place: use the returned ring."""
     from . import ring_kernels
-    cap = rb.capacity
-    n_write = available_write(rb).clamp(max=values.shape[-1])
-    margin = cap - rb.write_pos
-    wrapped = n_write > margin
-    data = ring_kernels.ring_write(rb.data, rb.write_pos, values, n_write)
-    return rb._replace(
-        data=data,
-        write_pos=torch.where(wrapped, n_write - margin,
-                              rb.write_pos + n_write).to(I32),
-        rw_wrap=torch.where(wrapped, DIFF_WRAP, rb.rw_wrap).to(I32))
+    data, write_pos, rw_wrap = ring_kernels.ring_write(*rb, values)
+    return RingBuffer(data, rb.read_pos, write_pos, rw_wrap)
+
+
+def read_frames(rb: RingBuffer, count: int, n_frames: int, gate=None,
+                whole_frames: bool = True):
+    """n_frames reads of `count` samples in a row, each starting where the
+    one before left the read pointer: the reads of one WebRtcAecm_Process
+    call (echo_control_mobile.cc:357-380).  One call of
+    ring_kernels.ring_read.  Per ring and frame: have_data = (readable //
+    count > 0) and gate; the frame holds min(readable, count) samples from
+    the read position and zeros after them; the read pointer then advances
+    by that many (WebRtc_MoveReadPtr), where have_data if whole_frames (as
+    Process does), else wherever the gate is true (WebRtc_ReadBuffer).
+    gate: (B,) bool, or None for all true.  Returns (frames (B, n_frames,
+    count) int32, have_data (B, n_frames) bool, new ring)."""
+    from . import ring_kernels
+    frames, have_data, read_pos, rw_wrap = ring_kernels.ring_read(
+        *rb, gate, count, n_frames, whole_frames)
+    return frames, have_data, RingBuffer(rb.data, read_pos, rb.write_pos,
+                                         rw_wrap)
 
 
 def read(rb: RingBuffer, count: int):
     """WebRtc_ReadBuffer (ring_buffer.c:97-140) on a batch of rings;
-    `count` is static.  Returns (values (B, count) int32, new ring).
-    Samples past each ring's readable count are zeroed here, outside the
-    data pass (the C API leaves them unspecified)."""
-    from . import ring_kernels
-    n_read = available_read(rb).clamp(max=count)
-    gathered = ring_kernels.ring_gather(rb.data, rb.read_pos, count)
-    mask = torch.arange(count, device=n_read.device) < n_read[..., None]
-    values = torch.where(mask, gathered.to(I32), 0)
-    return values, move_read_ptr(rb, n_read)
+    `count` is static.  Returns (values (B, count) int32, new ring): the
+    one-frame form of read_frames.  Samples past each ring's readable count
+    are zero (the C API leaves them unspecified)."""
+    frames, _, rb = read_frames(rb, count, 1, whole_frames=False)
+    return frames[:, 0], rb
+
+
+def write_plain(data, read_pos, write_pos, rw_wrap, values):
+    """The plain version of ring_kernels.ring_write, all of it: the clamp
+    to the free space, the store and the new write pointers.  Returns (new
+    ring, write_pos, rw_wrap); `data` is not modified."""
+    rb = RingBuffer(data, read_pos, write_pos, rw_wrap)
+    n_write = available_write(rb).clamp(max=values.shape[-1])
+    margin = rb.capacity - write_pos
+    wrapped = n_write > margin
+    return (_contig_write(data, write_pos, values, n_write),
+            torch.where(wrapped, n_write - margin,
+                        write_pos + n_write).to(I32),
+            torch.where(wrapped, DIFF_WRAP, rw_wrap).to(I32))
+
+
+def read_frames_plain(data, read_pos, write_pos, rw_wrap, gate, count: int,
+                      n_frames: int, whole_frames: bool = True):
+    """The plain version of ring_kernels.ring_read, all of it: per frame
+    the readable count, have_data, the gather, the zeros past the readable
+    count and the pointer advance.  Returns (frames (B, n_frames, count)
+    int32, have_data (B, n_frames) bool, read_pos, rw_wrap)."""
+    rb = RingBuffer(data, read_pos, write_pos, rw_wrap)
+    if gate is None:
+        gate = torch.ones_like(read_pos, dtype=torch.bool)
+    j = torch.arange(count, device=data.device)
+    frames, haves = [], []
+    for _ in range(n_frames):
+        readable = available_read(rb)
+        have = (torch.div(readable, count, rounding_mode="floor") > 0) & gate
+        n_read = readable.clamp(max=count)
+        gathered = _contig_read(data, rb.read_pos, count)
+        frames.append(torch.where(j < n_read[:, None], gathered.to(I32), 0))
+        haves.append(have)
+        moved = move_read_ptr(rb, n_read)
+        go = have if whole_frames else gate
+        rb = rb._replace(
+            read_pos=torch.where(go, moved.read_pos, rb.read_pos),
+            rw_wrap=torch.where(go, moved.rw_wrap, rb.rw_wrap))
+    return (torch.stack(frames, dim=1), torch.stack(haves, dim=1),
+            rb.read_pos, rb.rw_wrap)
 
 
 def _contig_write(data, pos, values, n_write):
     """Batched wrapped write: row b gets values[b, :n_write[b]] at
     [pos[b], pos[b] + n_write[b]) mod C.  data (B, C); pos, n_write (B,);
     values (B, n) int32, stored with the C cast to data's type.  Returns a
-    new tensor.  The plain version of ring_kernels.ring_write."""
+    new tensor.  The data pass of write_plain."""
     cap = data.shape[-1]
     n = values.shape[-1]
     offset = torch.remainder(
@@ -138,8 +189,8 @@ def _contig_write(data, pos, values, n_write):
 
 def _contig_read(data, pos, count: int):
     """Batched wrapped read of `count` values at [pos, pos + count) mod C:
-    data (B, C), pos (B,) -> (B, count) of data's type.  The plain version
-    of ring_kernels.ring_gather."""
+    data (B, C), pos (B,) -> (B, count) of data's type.  The data pass of
+    read_frames_plain."""
     cap = data.shape[-1]
     idx = torch.remainder(
         pos[:, None].long() + torch.arange(count, device=data.device)[None, :],

@@ -8,8 +8,10 @@ per-stream functions).  `make_chunk_step` gives the real-time step, one
 signals.
 
 On CUDA tensors each chunk launches the jitter-ring kernels of
-ops/ring_kernels.py: one `ring_write` and one `ring_gather` per 80-sample
-frame (2 at 16 kHz, 1 at 8 kHz).  Everything else is plain PyTorch.
+ops/ring_kernels.py once each, at 8 and at 16 kHz: one `ring_write`
+(BufferFarend's write with its pointer arithmetic) and one `ring_read`
+(every 80-sample frame that Process reads, with the counts, the zeroing,
+have_data and the pointer advance).  Everything else is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -53,7 +55,9 @@ def set_config_batch(state: control.AecmState, cng_mode,
 def buffer_farend_batch(state: control.AecmState, farend,
                         mult: int = 1) -> control.AecmState:
     """WebRtcAecm_BufferFarend for every stream; farend (n_streams,
-    80 * mult)."""
+    80 * mult), converted to int32 here if it is of another type.  A
+    column slice of a longer int32 signal goes to the write kernel as it
+    is (rows strided, unit inner stride)."""
     return control.buffer_farend(state, torch.as_tensor(
         farend, device=state.ec_startup.device).to(I32), mult)
 
@@ -84,7 +88,8 @@ class ChunkStep(nn.Module):
     device, which must be the state's.
 
     The step consumes its input state: on the card the jitter-ring write
-    updates the ring in place.  Use the returned state."""
+    updates the ring in place (the ring's pointers are always new
+    tensors).  Use the returned state."""
 
     def __init__(self, sample_rate: int, has_clean: bool = False,
                  device=None):
