@@ -2,6 +2,11 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
+With `--frames` it stops after phase 3 and the frames kernel's times at
+1024, 4096 and 16384 streams, and prints no result line: to compare two
+versions of the kernel, unpack the other commit into an ignored directory
+(`git archive <commit> | tar -x -C build/other`) and run both in turns,
+back to back, in one process after the other on one card.
 
 Two paths of the port are driven, each at 4096 streams: the fused engine
 (`run_streams_fused`) and the batch-major engine (`parallel.batch.
@@ -13,7 +18,13 @@ final line):
   2. build     nvcc builds webrtc_aecm_tpu_torch/csrc into build/torch_kernels
                (one nvcc per source, all at once)
   3. kernels   each CUDA kernel == its plain PyTorch version on the card at
-               full width (4096 streams), bit for bit, outputs and state
+               full width (4096 streams), bit for bit, outputs and state;
+               the frames kernel also on a planted case (re-blocking fills,
+               run rows, ties in the delay search, fixed delays across the
+               history's head wrap, startup transitions, full-scale and
+               all-zero inputs, comfort noise at full scale; every shift of
+               an inverse-transform stage and the saturating adds must
+               show in the plain run) at 4096 and at 4099 streams
   4. golden    run_streams_fused through the kernels == the JAX package's
                answer stored in tests/data/torch_golden_16k.npz
   5. main      the 16 kHz desync scene at 4096 streams x 1 s through the
@@ -33,8 +44,12 @@ final line):
                launches and device work (torch.profiler); each kernel's time
                per launch (CUDA events, its wrapper's host time alone, and
                its device time alone from the profiler) beside its plain
-               version's, its bound and, where PyTorch calls compute the
-               same function, their time; the launch floor (an empty kernel
+               version's, its bound (the frames kernel's is its integer
+               operations, counted by stage in FRAMES_OPS and weighed
+               by what a plain run shows the data to need, over the
+               card's int32 rate) and, where PyTorch calls compute the same
+               function, their time; the frames kernel at 1024, 4096 and
+               16384 streams; the launch floor (an empty kernel
                through the same binding); what the stream handle, an
                argument check and the output allocations cost the host
 The kernels JSON keeps the names of the TPU kernels: `ring_gather` is the
@@ -57,6 +72,69 @@ FS, CHUNK, CPS = 16000, 160, 2
 B_FULL = 4096
 STEP_LEN = CPS * CHUNK
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (NVIDIA data sheet)
+INT32_LANES_PER_SM = 64     # Hopper: 4 partitions x 16 INT32 units a clock
+# Integer operations of the frames kernel's algorithm for one stream,
+# counted from csrc/frames.cu and csrc/spl.cuh.  The rule: an add, a
+# subtract, a negate, a multiply, a shift, a logic operation, a compare, a
+# select, a min, a max, an abs, a clz, a popc, a convert (to_w16 is one) and
+# a division count 1 each; a multiply whose product is only added to or
+# subtracted from (a * b + c) counts 1 with its add, one IMAD; a 64-bit add
+# or shift counts 2; a float32 operation counts 1/2 (the card has twice the
+# float32 lanes); logic on compare results, addresses, loads, stores, loop
+# control and warp collectives count 0; an operation on a one-row leaf
+# counts once a stream, not once a lane.  Of alternative paths the one taken
+# is counted (a lane-parallel kernel may run both).
+FFT_BUTTERFLIES = 7 * 64
+# tr, ti: two multiply-adds and a shift each (6); ar * 2^14 + rounding, the
+# same for ai (2); four outputs of add, shift, convert (12)
+BUTTERFLY_OPS = 6 + 2 + 12
+# + four abs and four max for the next stage's scaling
+INVERSE_BUTTERFLY_OPS = BUTTERFLY_OPS + 8
+# scaling: 128 abs, 127 max, min, norm_w16 (261); window: shift, convert,
+# multiply, shift, convert on 128 samples (640); magnitudes: 63 bins of
+# negate, convert, 2 abs, 2 compares, 2 selects, 2 multiplies, a saturating
+# 64-bit add (6), sqrt_floor (11: 2 compares/selects, 2 converts, sqrtf, 2
+# multiplies, 2 compares, add, subtract) = 27, 2 edge bins of one abs, 64
+# adds for the sum (1,767)
+FORWARD_REST_OPS = 261 + 640 + 1767
+ACTIVE_BLOCK_OPS = {
+    "two forward transforms: 448 butterflies x (1 shared twiddle negate + "
+    "2 x 20) + 2 x (scaling 261 + window 640 + magnitudes 1,767)":
+        FFT_BUTTERFLIES * (1 + 2 * BUTTERFLY_OPS) + 2 * FORWARD_REST_OPS,
+    "inverse transform: Hermitian fill 65 x 6 + 63 x 4 = 642, 448 "
+    "butterflies x 28, stage scaling 7 x 7, window and overlap-add "
+    "64 x (9 + 7) + 1":
+        642 + FFT_BUTTERFLIES * INVERSE_BUTTERFLY_OPS + 49 + 1025,
+    "two binary spectra: 2 x (32 bins x 10 + 1)": 642,
+    "delay search: 100 rows x 7 (xor, popc, compare, compare and two "
+    "selects for the minimum, max) + 40 on one-row leaves": 740,
+    "pending block packed (40 x 4), aligned far block unpacked (65 x 2), "
+    "10 on one-row leaves": 300,
+    "energies and VAD: 65 bins x 4, four log energies x 10, 60 on one-row "
+    "leaves": 360,
+    "step size 10, store/restore arbitration 20 rows x 6 + 30, suppression "
+    "gain 20, startup 10": 190,
+    "Wiener filter: 65 bins x 84 + 10": 5470,
+    "efw = dfw * hnl: 65 bins x 8": 520,
+    "sample placement: 128 samples x 5": 640,
+}
+# what is counted: (operations each, how); all but the last two are per
+# active block, and all but the first only where the data takes the path
+FRAMES_OPS = {
+    "active block": (sum(ACTIVE_BLOCK_OPS.values()), "ACTIVE_BLOCK_OPS"),
+    "mean_bit_counts row updated": (12, "far-end bit count > 0"),
+    "histogram updated": (1263, "non-stationary far end: 101 entries x (6 "
+                          "compares + 3 selects + 7 float32 / 2)"),
+    "NLMS": (6110, "step size not 0: 65 bins x 94"),
+    "hnl squared": (299, "mult == 2: 65 x 3 + 21 + 1 + 41 x 2"),
+    "NLP": (587, "nlp_flag: 65 bins x 9 + 2"),
+    "comfort noise": (2015, "cng_mode: 65 bins x 31"),
+    "inactive slot": (
+        FFT_BUTTERFLIES * (1 + BUTTERFLY_OPS) + FORWARD_REST_OPS + 320 + 170,
+        "one forward transform, 64 samples x 5, the packing 170"),
+    "step": (4 * (80 + 64) * 8 + 128 * 5 + 60,
+             "the emit 4 x (80 + 64) samples x 8, the in-carry 128 x 5, 60"),
+}
 
 
 def log(msg):
@@ -267,6 +345,12 @@ def phase_build():
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
+    from webrtc_aecm_tpu_torch import fused_kernel
+    lay = fused_kernel.frames_layout()
+    log(f"  frames kernel: one warp per stream, {lay['streams_per_block']} "
+        f"streams per block, {lay['smem_bytes']} bytes of shared memory per "
+        f"block, {lay['blocks_per_sm']} blocks = {lay['warps_per_sm']} "
+        "resident warps per SM")
     return _build.build_info
 
 
@@ -312,6 +396,239 @@ class StepCapture:
         self.fk.frames_kernel_call = self.orig_frames
         self.rk.ring_multi_pass = self.orig_ring
         return False
+
+
+class PlainProbe:
+    """Watches fused.frames_step (the plain version) run once and records,
+    per stream, what the data made the step's active blocks do: the shift of
+    every inverse-transform stage, saturating adds that clipped, and the
+    data-dependent paths that the operation count follows.  `seen[name]` is
+    a (B,) mask of streams, `count[name]` a sum over streams and blocks."""
+
+    FUSED = ("_process_block_f", "_process_binary_spectrum_f",
+             "_calc_step_size_f", "_complex_ifft_128", "_butterfly_inputs")
+    SPL = ("sat_w16", "add_sat_w32")
+
+    def __init__(self, torch, core, run_rows):
+        self.torch = torch
+        n_act = (core.frame_fill[0] + 80 * run_rows.sum(0)) >> 6
+        self.act = [n_act > s for s in range(5)]
+        self.slot, self.in_ifft = -1, False
+        self.seen, self.count = {}, {"active block": sum(
+            a.sum() for a in self.act)}
+
+    def mark(self, name, mask):
+        m = mask.reshape(-1) & self.act[self.slot]
+        self.seen[name] = self.seen.get(name, False) | m
+        self.count[name] = self.count.get(name, 0) + m.sum()
+
+    def __enter__(self):
+        from webrtc_aecm_tpu_torch import fused
+        probe, spl = self, fused.spl
+        self.saved = ([(fused, n, getattr(fused, n)) for n in self.FUSED]
+                      + [(spl, n, getattr(spl, n)) for n in self.SPL])
+        orig = {n: f for _, n, f in self.saved}
+
+        def _process_block_f(*args):
+            probe.slot += 1
+            return orig["_process_block_f"](*args)
+
+        def _process_binary_spectrum_f(near, farend, bits):
+            stirred = farend.bit_counts[:100] > 0
+            probe.mark("histogram updated", stirred.any(0))
+            probe.count["mean_bit_counts row updated"] = probe.count.get(
+                "mean_bit_counts row updated", 0) + (
+                    stirred.sum(0) * probe.act[probe.slot]).sum()
+            return orig["_process_binary_spectrum_f"](near, farend, bits)
+
+        def _calc_step_size_f(core):
+            mu = orig["_calc_step_size_f"](core)
+            probe.mark("NLMS", mu != 0)
+            return mu
+
+        def _complex_ifft_128(fr, fi, t):
+            probe.in_ifft = True
+            out = orig["_complex_ifft_128"](fr, fi, t)
+            probe.in_ifft = False
+            return out
+
+        def _butterfly_inputs(fr, fi, t, s):
+            if probe.in_ifft:    # the stage's input: what its shift is for
+                top = probe.torch.maximum(fr.abs().amax(0), fi.abs().amax(0))
+                shift = (top > 13573).int() + (top > 27146).int()
+                for v in (0, 1, 2):
+                    probe.mark(f"an inverse-transform stage shifting by {v}",
+                               shift == v)
+            return orig["_butterfly_inputs"](fr, fi, t, s)
+
+        def sat_w16(x):
+            if 0 <= probe.slot < 5:
+                probe.mark("a saturating int16 add or clamp that clipped",
+                           ((x > 32767) | (x < -32768)).any(0))
+            return orig["sat_w16"](x)
+
+        def add_sat_w32(a, b):
+            if 0 <= probe.slot < 5:
+                total = a.long() + b.long()
+                probe.mark("a saturating int32 add that clipped",
+                           ((total > 2 ** 31 - 1) | (total < -2 ** 31)
+                            ).any(0))
+            return orig["add_sat_w32"](a, b)
+
+        hooks = locals()
+        for mod, name, _ in self.saved:
+            setattr(mod, name, hooks[name])
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        self.slot = -1
+        return False
+
+
+def widen_frames_args(torch, frames_args, b):
+    """A captured frames_step call (core, tables, far, noisy, phase,
+    run_rows, mult, n_frames, fpc, head) repeated along the stream axis to b
+    streams; every tensor is a fresh contiguous copy."""
+    from webrtc_aecm_tpu_torch._tree import tree_map
+    core, t, far, noisy, phase, run_rows, *tail = frames_args
+    b0 = far.shape[1]
+
+    def widen(x):
+        return torch.cat([x] * (b // b0) + [x[:, :b % b0]],
+                         dim=1).contiguous()
+    return (tree_map(widen, core), t, widen(far), widen(noisy), widen(phase),
+            widen(run_rows)) + tuple(tail)
+
+
+def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
+    """Inputs of one frames_step call at b streams with the cases a
+    lane-parallel kernel is most likely to get wrong, planted by stream
+    index on a warm state (a captured call of the desync scene, repeated to
+    b streams).  Returns (core, rest of the arguments, {category: mask})."""
+    from webrtc_aecm_tpu_torch import fused
+    core, t, far, noisy, phase, run_rows, mult, n_frames, fpc, _ = \
+        widen_frames_args(torch, frames_args, b)
+    rng = np.random.default_rng(seed)
+    i = torch.arange(b, device=dev)
+    cats = {}
+
+    def where(name, mask):
+        cats[name] = mask
+        return mask
+
+    def put(leaf, mask, value, rows=slice(None)):
+        leaf[rows, mask] = torch.as_tensor(value, dtype=leaf.dtype,
+                                           device=dev)
+
+    # a fresh state: every mean_bit_counts row equal, histories empty
+    m = where("fresh state (all minima equal)", i % 5 == 0)
+    fresh = fused._to_circular_far(fused.create_fused(b, FS, device=dev).core)
+    for (_, leaf), (_, new) in zip(flatten(core), flatten(fresh)):
+        leaf[:, m] = new[:, m]
+    # two equal valleys that the far-end rows sliding past them leave alone
+    m = where("two equal minima", i % 7 == 1)
+    for r in (17, 60):
+        put(core.de_near.mean_bit_counts, m, 0, slice(r, r + 1))
+        put(core.de_farend.bit_counts, m, 0, slice(r - 5, r))
+        put(core.de_farend.binary_history, m, 0, slice(r - 5, r))
+    # re-blocking: the carry fill with the out fill of a running stream, or
+    # of one still in its first frames (out fill 0: zero-stuffing)
+    for fill in (0, 16, 32, 48):
+        m = where(f"frame_fill {fill}", i % 4 == fill // 16)
+        put(core.frame_fill, m, fill)
+        put(core.out_fill, m & (i % 8 < 4), 48 - fill)
+        put(core.out_fill, m & (i % 8 >= 4), 0)
+    for name, rows, cls in (("run_rows all false", [0, 0, 0, 0], 0),
+                            ("run_rows last two", [0, 0, 1, 1], 1),
+                            ("run_rows all four", [1, 1, 1, 1], 2)):
+        m = where(name, (i // 4) % 3 == cls)
+        run_rows[:, m] = torch.as_tensor(rows, dtype=torch.bool,
+                                         device=dev)[:, None]
+    # fixed delays: in the step's own pending blocks (0..4), just past them,
+    # and on the circular history on both sides of the head
+    fixed = torch.as_tensor([0, 2, 4, 5, 50, 97, 99], dtype=torch.int32,
+                            device=dev)[(i // 11) % 7]
+    m = where("fixed_delay >= 0", i % 11 == 2)
+    core.fixed_delay[0, m] = fixed[m]
+    where("fixed delay in the pending blocks", m & (fixed <= 4))
+    where("fixed delay past the head wrap",
+          m & (fixed - 5 >= 0) & (head + 99 - (fixed - 5) >= 100))
+    where("fixed delay before the head wrap",
+          m & (head + 99 - (fixed - 1) < 100))
+    # a silent near end under full suppression over a saturated noise
+    # estimate: comfort noise at full scale in every bin, the largest input
+    # the inverse transform can get
+    m = where("silent near end over a full-scale noise estimate",
+              i % 37 == 12)
+    for leaf in (noisy, core.d_buf_noisy, core.in_carry_noisy,
+                 core.near_filt):
+        put(leaf, m, 0)
+    put(core.noise_est, m, 0x7FFFFFFF)
+    put(core.cng_mode, m, 1)
+    put(core.cng_mode, where("cng_mode 0", i % 13 == 3), 0)
+    where("cng_mode 1", core.cng_mode[0] == 1)
+    put(core.nlp_flag, where("nlp_flag 0", i % 17 == 4), 0)
+    where("nlp_flag 1", core.nlp_flag[0] == 1)
+    for name, cls, state, count in (
+            ("startup_state 0, tot_count 511", 5, 0, 511),
+            ("startup_state 1, tot_count 1023", 6, 1, 1023),
+            ("startup_state 2", 7, 2, 5000)):
+        m = where(name, i % 19 == cls)
+        put(core.startup_state, m, state)
+        put(core.tot_count, m, count)
+    put(core.de_near.robust_validation_enabled,
+        where("robust validation on", i % 31 == 11), 1)
+    # full-scale inputs: the IFFT's stage shifts and the saturating adds
+    n = far.shape[0]
+    tone = np.round(32767 * np.sin(2 * np.pi * 9 * np.arange(n) / 128))
+    for name, cls, wave in (
+            ("full-scale square noise", 0,
+             rng.choice([-32768, 32767], (n, 1))),
+            ("full-scale tone", 1, tone[:, None]),
+            ("full-scale constant", 2, np.full((n, 1), 32767))):
+        m = where(name, (i % 23 == 9) & ((i // 23) % 3 == cls))
+        put(far, m, wave)
+        put(noisy, m, wave)
+    m = where("all-zero inputs and filters", i % 29 == 10)
+    for leaf in (far, noisy, core.x_buf, core.d_buf_noisy, core.in_carry_far,
+                 core.in_carry_noisy, core.near_filt, core.echo_filt):
+        put(leaf, m, 0)
+    lows = core.de_near.mean_bit_counts[:100]
+    where("equal minima in mean_bit_counts",
+          (lows == lows.min(0).values).sum(0) >= 2)
+    return core, (t, far, noisy, phase, run_rows, mult, n_frames, fpc,
+                  head), cats
+
+
+def frames_planted_check(torch, dev, frames_args, b, head):
+    """The frames kernel == fused.frames_step on the planted case at b
+    streams: every output and every core leaf; fails if a category of the
+    case has no stream.  What the full-scale inputs are there to reach (each
+    shift of an inverse-transform stage, a saturating add that clips) is
+    read off the plain run, not off what was planted."""
+    from webrtc_aecm_tpu_torch import fused, fused_kernel
+    core, rest, cats = frames_planted_case(torch, dev, frames_args, b, head)
+    with PlainProbe(torch, core, rest[4]) as probe:
+        ref = fused.frames_step(fused.clone_state(core), *rest)
+    reached = [f"an inverse-transform stage shifting by {v}"
+               for v in (0, 1, 2)] + [
+        "a saturating int16 add or clamp that clipped",
+        "a saturating int32 add that clipped"]
+    cats.update({k: probe.seen.get(k, torch.zeros(b, dtype=torch.bool,
+                                                  device=dev))
+                 for k in reached})
+    missing = [k for k, m in cats.items() if not bool(m.any())]
+    if missing:
+        fail(f"frames planted case B={b} lacks: {missing}")
+    got = fused_kernel.frames_kernel_call(core, *rest)
+    torch.cuda.synchronize()
+    worst = compare_trees(f"frames kernel, planted case B={b}", got, ref)
+    log(f"  frames kernel == plain on the planted case at B={b}, head "
+        f"{head}: " + ", ".join(f"{k} ({int(m.sum())})"
+                                for k, m in cats.items()))
+    return worst
 
 
 def ring_case(torch, dev, b, cps, clamp_frac, rng):
@@ -457,6 +774,9 @@ def phase_kernels(torch, dev):
         "(outputs, pending blocks, every core leaf)")
     for k in ("frames", "ring"):
         worst[k] = max(worst[k], capture.worst[k])
+    for b, head in ((B_FULL, 95), (B_FULL + 3, 90)):
+        worst["frames"] = max(worst["frames"], frames_planted_check(
+            torch, dev, capture.frames_args, b, head))
     return worst, capture
 
 
@@ -622,15 +942,50 @@ def frames_bytes(rest, b):
     5 block slots fetch, the step's inputs and outputs."""
     from webrtc_aecm_tpu_torch import fused_kernel
     state = 0
-    for (path, _), (rows, dtype) in zip(
-            fused_kernel._core_leaves(rest[0]), fused_kernel._leaf_layout()):
+    for path, shape, dtype in fused_kernel._leaf_layout(1):
         if path not in ("far_history", "far_q_domains"):
-            state += rows * dtype.itemsize
+            state += shape[0] * dtype.itemsize
     far, noisy, phase, run_rows = rest[2:6]
     ins = sum(x.shape[0] for x in (far, noisy, phase, run_rows)) * 4
     history = 5 * (40 + 1) * 4
     outs = (far.shape[0] + 5 * 40 + 5) * 4
     return (2 * state + ins + history + outs) * b
+
+
+def frames_ops(torch, rest):
+    """Integer operations of one frames_step call on these inputs: the
+    counts of FRAMES_OPS times what a plain run of the call shows its data
+    to need (active and inactive blocks, and per active block the
+    data-dependent paths).  Returns (operations, {what: how many})."""
+    from webrtc_aecm_tpu_torch import fused
+    core, mult, run_rows = rest[0], rest[6], rest[5]
+    with PlainProbe(torch, core, run_rows) as probe:
+        fused.frames_step(fused.clone_state(core), *rest[1:])
+    b = run_rows.shape[1]
+    n = {k: int(v) for k, v in probe.count.items() if k in FRAMES_OPS}
+    active = n["active block"]
+    act_of = lambda leaf: int(sum(  # noqa: E731
+        (a & (leaf[0] != 0)).sum() for a in probe.act))
+    times = dict(n, **{
+        "hnl squared": active if mult == 2 else 0,
+        "NLP": act_of(core.nlp_flag),
+        "comfort noise": act_of(core.cng_mode),
+        "inactive slot": 5 * b - active,
+        "step": b})
+    return sum(times[k] * ops for k, (ops, _) in FRAMES_OPS.items()), times
+
+
+def int32_ops_per_s(torch):
+    """The card's peak int32 rate outside the tensor cores: SMs x 64 lanes
+    x the highest SM clock nvidia-smi reports."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if res.returncode != 0 or not res.stdout.strip():
+        fail(f"nvidia-smi failed: {res.stderr.strip()}")
+    mhz = float(res.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * INT32_LANES_PER_SM * mhz * 1e6, sms, mhz
 
 
 def ring_pass_bytes(wpos, n_write, n_read):
@@ -639,6 +994,30 @@ def ring_pass_bytes(wpos, n_write, n_read):
     cps, b = wpos.shape
     written = int(n_write.clamp(min=0, max=n_read).sum())
     return written * (4 + 2) + cps * b * n_read * (2 + 4) + 3 * cps * b * 4
+
+
+def frames_sizes(torch, capture):
+    """The frames kernel at 1024, 4096 and 16384 streams (the captured call
+    repeated along the stream axis): ms per launch by CUDA events, the
+    wrapper's host us, the kernel's device ms."""
+    from webrtc_aecm_tpu_torch import fused_kernel
+    sizes = {}
+    for b_n in (1024, B_FULL, 16384):
+        args_n = widen_frames_args(torch, capture.frames_args, b_n)
+        fn_n = lambda: fused_kernel.frames_kernel_call(*args_n)  # noqa: E731
+        sizes[b_n] = dict(ms=cuda_ms(fn_n, 10),
+                          host_us=host_us(torch, fn_n, 100),
+                          device_ms=device_ms(torch, fn_n, 5,
+                                              "frames_step_kernel"))
+    return sizes
+
+
+def log_frames_sizes(sizes, card):
+    for b_n, r in sizes.items():
+        dev_ms = ("not measured" if r["device_ms"] is None
+                  else f"{r['device_ms']:.4f} ms")
+        log(f"[timing] frames_step at B={b_n}: {r['ms']:.4f} ms per launch "
+            f"(host {r['host_us']:.2f} us, device {dev_ms}) on {card}")
 
 
 def phase_timing(torch, dev, capture, batch_state):
@@ -672,10 +1051,18 @@ def phase_timing(torch, dev, capture, batch_state):
     core, t, *rest = capture.frames_args
     work = fused.clone_state(core)
     frames = lambda: fused_kernel.frames_kernel_call(work, t, *rest)  # noqa: E731
+    peak_ops, sms, mhz = int32_ops_per_s(torch)
+    n_ops, op_times = frames_ops(torch, [core, t] + rest)
+    bytes_ms = bound_ms(frames_bytes([core, t] + rest, B_FULL))
+    ops_ms = n_ops / peak_ops * 1e3
     per["frames_step"] = dict(
         ms=cuda_ms(frames, 10),
         plain_ms=cuda_ms(lambda: fused.frames_step(core, t, *rest), 3),
-        bound_ms=bound_ms(frames_bytes([core, t] + rest, B_FULL)),
+        bound_ms=max(bytes_ms, ops_ms),
+        bound_by="operations" if ops_ms > bytes_ms else "bytes",
+        bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_stream=n_ops / B_FULL,
+        op_times=op_times,
+        peak=f"{sms} SMs x {INT32_LANES_PER_SM} int32 lanes x {mhz:.0f} MHz",
         library_ms=None)
     data, wpos, values, n_write, rpos, n_read = capture.ring_args
     ring_work = data.clone()
@@ -784,6 +1171,7 @@ def phase_timing(torch, dev, capture, batch_state):
             ("ring_write", write, 20, "ring_write_kernel")):
         per[name]["device_ms"] = device_ms(torch, fn, n, symbol)
         per[name]["host_us"] = host[name]
+    per["frames_step"]["sizes"] = frames_sizes(torch, capture)
     for name, fn in (("ring_gather", library_read),
                      ("ring_write", library_write)):
         per[name]["library_device_ms"] = device_ms(torch, fn, 20)
@@ -840,6 +1228,10 @@ def main():
         worst, capture = phase_kernels(torch, dev)
         log(f"[kernels] bit-exact at B={B_FULL} "
             f"({time.perf_counter() - t:.2f} s)")
+        if "--frames" in sys.argv[1:]:
+            log_frames_sizes(frames_sizes(torch, capture), card)
+            log(f"[total] {time.perf_counter() - t_all:.1f} s")
+            return 0
 
         t = time.perf_counter()
         n_leaves = phase_golden(torch, dev)
@@ -898,6 +1290,14 @@ def main():
                 f"{r['host_us']:.2f} us, device {ms_or(r['device_ms'])}), "
                 f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
                 f"ms, library call {lib} (B={B_FULL}) on {card}")
+        fr = per["frames_step"]
+        log(f"[timing] frames_step bound: {fr['ops_per_stream']:.0f} integer "
+            f"operations per stream and step over {fr['peak']} = "
+            f"{fr['ops_ms']:.5f} ms; bytes {fr['bytes_ms']:.5f} ms; bound by "
+            f"{fr['bound_by']}")
+        for what, (ops, how) in FRAMES_OPS.items():
+            log(f"[timing]   {fr['op_times'][what]} x {ops}: {what} ({how})")
+        log_frames_sizes(fr["sizes"], card)
         for name, us in extra["pieces"].items():
             log(f"[timing] host path, {name}: {us:.2f} us per call")
         log(f"[timing] ({time.perf_counter() - t:.2f} s)")
@@ -933,7 +1333,8 @@ def main():
             "replaces": replaces, "launches": counts[name],
             "max_abs_err": path_err[name], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": r["library_ms"]})
+            "bound_by": r.get("bound_by", "bytes"),
+            "library_ms": r["library_ms"]})
     log(f"[total] {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -116,8 +116,14 @@ def test_frames_step_matches_jax(captured, jax_frames_step, step):
     core_in, args, (core_t, out_t, pend_h, pend_q) = captured[step]
     t, far, noisy, phase, run_rows, mult, n_frames, fpc, head = args
     assert (mult, n_frames, fpc) == (2, 4, 2)
-    core_j, out_j, ph_j, pq_j = jax_frames_step(core_in, far, noisy, phase,
-                                                run_rows, head)
+    _assert_matches_jax((core_t, out_t, pend_h, pend_q), jax_frames_step(
+        core_in, far, noisy, phase, run_rows, head))
+
+
+def _assert_matches_jax(torch_result, jax_result):
+    """Outputs, pending far blocks and every core leaf, tolerance 0."""
+    core_t, out_t, pend_h, pend_q = torch_result
+    core_j, out_j, ph_j, pq_j = jax_result
     np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
     np.testing.assert_array_equal(pend_h.numpy(), np.asarray(ph_j))
     np.testing.assert_array_equal(pend_q.numpy(), np.asarray(pq_j))
@@ -168,3 +174,82 @@ def test_frames_wrapper_takes_plain_version_on_cpu(captured):
     for (p, a), (_, b) in zip(tree_leaves_with_path(core_w),
                               tree_leaves_with_path(core_t)):
         assert torch.equal(a, b), p
+
+
+# ---------------------------------------------------------------------------
+# Planted cases: the semantics a lane-parallel frames kernel is most likely
+# to get wrong, pinned on the plain version against the JAX package
+# ---------------------------------------------------------------------------
+
+FILLS = torch.tensor([0, 16, 32, 48, 0, 16, 32, 48], dtype=torch.int32)
+
+
+def _plant(name, core, far, noisy, phase, run_rows):
+    """Plants case `name` into copies of a warm captured call (all 8
+    streams); returns the new arguments and the circular head to use."""
+    core = tf.clone_state(core)
+    run_rows = run_rows.clone()
+    head = 20
+    near = core.de_near
+    if name == "two_equal_minima":
+        # far-end rows sliding past rows 17 and 60 during the 5 blocks are
+        # empty, so the two planted valleys stay equal
+        for r in (17, 60):
+            near.mean_bit_counts[r] = 0
+            core.de_farend.bit_counts[r - 5:r] = 0
+            core.de_farend.binary_history[r - 5:r] = 0
+    elif name == "no_candidate_under_the_limit":
+        near.mean_bit_counts[:] = 20000           # > 32 << 9, every row
+    elif name == "fresh_estimator_all_equal":
+        fresh = tf.create_fused(B, FS, device="cpu").core
+        core = core._replace(de_near=fresh.de_near,
+                             de_farend=fresh.de_farend)
+    elif name.startswith("run_rows_"):
+        rows = {"run_rows_none": [0, 0, 0, 0],
+                "run_rows_last_two": [0, 0, 1, 1],
+                "run_rows_all_four": [1, 1, 1, 1]}[name]
+        run_rows[:] = torch.tensor(rows, dtype=torch.bool)[:, None]
+        core.frame_fill[0] = FILLS
+        core.out_fill[0] = 48 - FILLS
+        core.out_fill[0, 4:] = 0                  # still zero-stuffing
+    elif name == "delay_across_the_head_wrap":
+        head = 95
+        core.fixed_delay[0] = torch.tensor([0, 4, 5, 50, 94, 97, 99, -1],
+                                           dtype=torch.int32)
+    else:
+        raise ValueError(name)
+    return core, far, noisy, phase, run_rows, head
+
+
+PLANTED = ("two_equal_minima", "no_candidate_under_the_limit",
+           "fresh_estimator_all_equal", "run_rows_none",
+           "run_rows_last_two", "run_rows_all_four",
+           "delay_across_the_head_wrap")
+
+
+@pytest.mark.parametrize("name", PLANTED)
+def test_frames_step_planted_case_matches_jax(captured, jax_frames_step,
+                                              name):
+    core_in, args, _ = captured[COMPARED[-1]]
+    t, far, noisy, phase, run_rows, mult, n_frames, fpc, _ = args
+    core, far, noisy, phase, run_rows, head = _plant(
+        name, core_in, far, noisy, phase, run_rows)
+    res = tf.frames_step(tf.clone_state(core), t, far, noisy, phase,
+                         run_rows, mult, n_frames, fpc, head)
+    _assert_matches_jax(res, jax_frames_step(core, far, noisy, phase,
+                                             run_rows, head))
+    new = res[0]
+    if name == "two_equal_minima":
+        # the far end is live, so the search ran: the lower of the two
+        # equal valleys is the candidate
+        assert int(core_in.de_farend.bit_counts.sum()) > 0
+        assert new.de_near.last_candidate_delay[0].tolist() == [17] * B
+    elif name == "no_candidate_under_the_limit":
+        assert new.de_near.last_candidate_delay[0].tolist() == [-1] * B
+    elif name == "run_rows_none":
+        for (path, a), (_, b) in zip(tree_leaves_with_path(new),
+                                     tree_leaves_with_path(core)):
+            assert torch.equal(a, b), path
+        assert res[2].abs().sum() > 0             # pending blocks all the same
+    elif name == "run_rows_last_two":
+        assert new.frame_fill[0].tolist() == ((FILLS + 32) & 63).tolist()

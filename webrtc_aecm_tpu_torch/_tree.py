@@ -16,14 +16,19 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def tree_leaves_with_path(tree, prefix=""):
-    """[(dotted field path, leaf)] in field order (JAX's flatten order for
-    NamedTuples)."""
-    if _is_node(tree):
-        out = []
-        for f in tree._fields:
-            out += tree_leaves_with_path(getattr(tree, f),
-                                         f"{prefix}{f}.")
-        return out
-    return [(prefix[:-1], tree)]
+def tree_leaves(tree, prefix=None):
+    """The leaves of a NamedTuple tree in field order (JAX's flatten order);
+    with a prefix (a string), (dotted field path, leaf) pairs instead."""
+    out = []
+    for f, x in zip(tree._fields, tree):
+        path = None if prefix is None else f"{prefix}{f}."
+        if _is_node(x):
+            out += tree_leaves(x, path)
+        else:
+            out.append(x if prefix is None else (path[:-1], x))
+    return out
 
+
+def tree_leaves_with_path(tree):
+    """[(dotted field path, leaf)] in field order."""
+    return tree_leaves(tree, "")

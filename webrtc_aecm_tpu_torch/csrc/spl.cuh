@@ -30,7 +30,7 @@ __device__ __forceinline__ int wneg(int a) { return (int)(0u - (uint32_t)a); }
 
 // C (int16_t) cast: keep the low 16 bits, sign-extend.
 __device__ __forceinline__ int to_w16(int x) {
-  return (int)(((uint32_t)x + 0x8000u) & 0xFFFFu) - 0x8000;
+  return (int)(int16_t)(uint16_t)x;   // one sign-extending convert
 }
 __device__ __forceinline__ int sat_w16(int x) {
   return x > WORD16_MAX ? WORD16_MAX : (x < WORD16_MIN ? WORD16_MIN : x);
@@ -81,7 +81,8 @@ __device__ __forceinline__ int mul_i64_shift_right(int x, int mult,
 // WebRtcSpl_DivW32W16: trunc(num / den) wrapped to int32, WORD32_MAX on 0.
 __device__ __forceinline__ int div_w32_w16(int num, int den) {
   if (den == 0) return WORD32_MAX;
-  return (int)(uint32_t)(long long)((long long)num / (long long)den);
+  if (den == -1) return wneg(num);   // the one quotient that leaves int32
+  return num / den;                  // a 32-bit divide, not a 64-bit one
 }
 // WebRtcSpl_DivU32U16: floor(num / den), 0xFFFFFFFF on 0.
 __device__ __forceinline__ uint32_t div_u32_u16(uint32_t num, uint32_t den) {
@@ -91,9 +92,11 @@ __device__ __forceinline__ uint32_t div_u32_u16(uint32_t num, uint32_t den) {
 // WebRtcSpl_SqrtFloor: floor(sqrt(v)) for v >= 0, 0 for v < 0.
 __device__ __forceinline__ int sqrt_floor(int v) {
   if (v <= 0) return 0;
-  long long r = (long long)sqrt((double)v);
-  if ((r + 1) * (r + 1) <= (long long)v) r += 1;
-  if (r * r > (long long)v) r -= 1;
+  // float32 holds v to 2^-24 and sqrtf rounds to nearest, so the estimate
+  // is within 1 of the root (r <= 46341: no overflow below); fix it up
+  uint32_t r = (uint32_t)sqrtf((float)v);
+  if ((r + 1) * (r + 1) <= (uint32_t)v) r += 1;
+  if (r * r > (uint32_t)v) r -= 1;
   return (int)r;
 }
 

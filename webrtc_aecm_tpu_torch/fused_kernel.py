@@ -5,32 +5,35 @@ Replaces the TPU kernel `_frames_kernel_call` (webrtc_aecm_tpu/fused.py:
 :1037): the whole AECM core for one serving step of n_frames frames, in the
 circular far-history mode.  The plain version is fused.frames_step.
 
-Design: one CUDA thread per stream runs the step's 5-slot block schedule
-(re-blocking, windowed 128-point FFTs, delay estimator, aligned far fetch,
-energies/VAD, step size, NLMS, suppression gain, Wiener/NLP, CNG,
-IFFT/overlap-add, 80-sample emit) as straight-line integer code.  The state
-keeps the JAX package's lane-major (rows, B) layout, so thread b reading
-row r of a leaf coalesces with its neighbours.  The state is updated in
-place, as input_output_aliases does for the TPU kernel; the two far-history
-leaves are read-only and the step's new blocks come out in pend_hist and
-pend_q for the caller to append.
+What bounds it on the card: integer operations (three 128-point
+fixed-point FFTs, the 100-entry delay search and the 65-bin NLMS / Wiener /
+comfort-noise stages per block, 5 blocks per step: about 0.3 M integer
+operations per stream and step against 22 KB moved), not bytes.
 
-What bounds it on the card: latency of a long dependent chain per thread.
-At B = 4096 streams the grid has 4096 threads, about one warp per SM, so
-each SM runs little more than a single warp and memory latency is barely
-hidden; the per-thread working arrays (FFT buffers, 65-bin spectra, the
-block outputs) live in local memory.  Spreading bins across the threads of
-a warp is the next step once a measurement asks for it.
+Design: one warp per stream, 8 streams per thread block.  The block stages
+its streams' state (every leaf the step reads but the far history) in
+shared memory once, cooperatively, so that the lane-major (rows, B) layout
+of the JAX package gives 32 contiguous bytes per row; the warp then runs
+the step's 5-slot block schedule on shared memory with its lanes across
+bins (65-bin stages in three passes, the delay search and its histogram in
+four, two FFT butterflies per lane and stage, warp reductions for the sums,
+maxima and the delay search's lowest-index minimum); one-row leaves ride in
+registers through the 5 slots; the one-row-per-block histories are not
+shifted but staged with head room and stored from where they ended.  The
+state is updated in place, as input_output_aliases does for the TPU kernel;
+the two far-history leaves are read-only and the step's new blocks come out
+in pend_hist and pend_q for the caller to append.
 """
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 
 import torch
 
 from . import _build
-from ._tree import tree_leaves_with_path
+from ._tree import tree_leaves, tree_leaves_with_path
 
 I32 = torch.int32
 
@@ -41,13 +44,28 @@ def _core_leaves(core):
     return tree_leaves_with_path(core)
 
 
-@functools.lru_cache(maxsize=1)
-def _leaf_layout():
-    """(rows, dtype) of each core leaf, in kernel order, from a fresh
-    one-stream state."""
+@functools.lru_cache(maxsize=8)
+def _leaf_layout(b: int):
+    """(path, shape, dtype) of each core leaf at b streams, in kernel order,
+    from a fresh one-stream state."""
     from .fused import create_fused
     one = create_fused(1, 16000, device="cpu")
-    return tuple((x.shape[0], x.dtype) for _, x in _core_leaves(one.core))
+    return tuple((path, torch.Size((x.shape[0], b)), x.dtype)
+                 for path, x in _core_leaves(one.core))
+
+
+def frames_layout():
+    """The kernel's launch shape, from the built library: streams per
+    block, shared-memory bytes per block, resident blocks and warps per
+    SM."""
+    lib = _build.load_library()
+    g, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    _build.check(lib.aecm_frames_layout(
+        ctypes.byref(g), ctypes.byref(smem), ctypes.byref(blocks)),
+        "aecm_frames_layout")
+    return dict(streams_per_block=g.value, smem_bytes=smem.value,
+                blocks_per_sm=blocks.value,
+                warps_per_sm=blocks.value * g.value)
 
 
 def frames_kernel_call(core, t, far_frames, noisy_frames, phase_all,
@@ -72,9 +90,18 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, phase_all,
     if n_frames * 80 != 320:
         raise NotImplementedError("the frames kernel runs 4-frame steps")
     b = far_frames.shape[-1]
-    leaves = _core_leaves(core)
-    for (path, x), (rows, dtype) in zip(leaves, _leaf_layout()):
-        _build.require(x, path, dtype, (rows, b), dev)   # a core leaf
+    leaves = tree_leaves(core)
+    layout = _leaf_layout(b)
+    if len(leaves) != len(layout):
+        raise ValueError(f"core has {len(leaves)} leaves, the kernel "
+                         f"takes {len(layout)}")
+    # one pass over the 75 leaves; the message is made only on a failure
+    ptrs = array.array("Q")
+    for x, (path, shape, dtype) in zip(leaves, layout):
+        if (x.dtype != dtype or x.shape != shape or x.device != dev
+                or not x.is_contiguous()):
+            _build.require(x, path, dtype, shape, dev)  # raises
+        ptrs.append(x.data_ptr())
     if core.de_near.binary_history.shape[0] != 1:
         raise NotImplementedError("lookahead capacity > 1")
     _build.require(far_frames, "far_frames", I32, (n_frames * 80, b), dev)
@@ -88,14 +115,13 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, phase_all,
     out = torch.empty((n_frames * 80, b), dtype=I32, device=dev)
     pend_hist = torch.empty((5 * 40, b), dtype=I32, device=dev)
     pend_q = torch.empty((5, b), dtype=I32, device=dev)
-    ptrs = (ctypes.c_void_p * len(leaves))(*[x.data_ptr()
-                                             for _, x in leaves])
     _build.launch(
-        "aecm_frames_step", dev.index, ptrs, len(leaves),
-        far_frames.data_ptr(), noisy_frames.data_ptr(), phase_all.data_ptr(),
-        run_rows.data_ptr(), t.win128.data_ptr(), t.fwr.data_ptr(),
-        t.fws.data_ptr(), out.data_ptr(), pend_hist.data_ptr(),
-        pend_q.data_ptr(), b, far_head, mult, frames_per_chunk)
+        "aecm_frames_step", dev.index, ptrs.buffer_info()[0], len(ptrs),
+        far_frames.data_ptr(), noisy_frames.data_ptr(),
+        phase_all.data_ptr(), run_rows.data_ptr(), t.win128.data_ptr(),
+        t.fwr.data_ptr(), t.fws.data_ptr(), out.data_ptr(),
+        pend_hist.data_ptr(), pend_q.data_ptr(), b, far_head, mult,
+        frames_per_chunk)
     _FRAMES.launches += 1
     return core, out, pend_hist, pend_q
 
