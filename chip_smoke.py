@@ -2,45 +2,68 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With `--frames` it stops after phase 3 and the frames kernel's times at
-1024, 4096 and 16384 streams, and prints no result line: to compare two
-versions of the kernel, unpack the other commit into an ignored directory
-(`git archive <commit> | tar -x -C build/other`) and run both in turns,
-back to back, in one process after the other on one card.
+With `--frames` it stops after phase 3 and the frames kernel's times (at
+1024, 4096 and 16384 streams on the main path's mode, and at 4096 in each
+mode), and prints no result line: to compare two versions of the kernel,
+unpack the other commit into an ignored directory (`git archive <commit> |
+tar -x -C build/other`) and run both in turns, back to back, in one process
+after the other on one card.
 
-Two paths of the port are driven, each at 4096 streams: the fused engine
-(`run_streams_fused`) and the batch-major engine (`parallel.batch.
-run_streams`, one `ChunkStep` per 10 ms).
+The port's paths are driven at 4096 streams: the fused engine
+(`run_streams_fused`, and its 10 ms real-time step through
+`AecmPipeline.step`), the batch-major engine (`parallel.batch.run_streams`,
+one `ChunkStep` per 10 ms), and both through `AecmPipeline`.
 
 Phases (each prints its seconds; any failure exits non-zero before the
 final line):
   1. card      the nvidia-smi name and power limit
   2. build     nvcc builds webrtc_aecm_tpu_torch/csrc into build/torch_kernels
-               (one nvcc per source, all at once)
+               (one nvcc per source, all at once); each frames kernel
+               instance's registers, stack, spills and layout
   3. kernels   each CUDA kernel == its plain PyTorch version on the card at
-               full width (4096 streams), bit for bit, outputs and state;
-               the frames kernel also on a planted case (re-blocking fills,
-               run rows, ties in the delay search, fixed delays across the
-               history's head wrap, startup transitions, full-scale and
-               all-zero inputs, comfort noise at full scale; every shift of
-               an inverse-transform stage and the saturating adds must
-               show in the plain run) at 4096 and at 4099 streams
+               full width (4096 streams), bit for bit, outputs and state:
+               the ring kernels on planted edge cases; the frames kernel in
+               each of its modes (16 and 8 kHz circular, 2, 3 and 4 block
+               slots newest-first, clean, abs_approx) on steps captured from
+               the kernel path and again at 4099 streams, and on a planted
+               case (re-blocking fills, run rows, ties in the delay search,
+               fixed delays in the pending blocks and deep in the history,
+               startup transitions, full-scale and all-zero inputs, comfort
+               noise at full scale; every shift of an inverse-transform
+               stage and the saturating adds must show in the plain run) at
+               4096 and 4099 streams, in the main path's mode and in the
+               8 kHz 3-slot clean mode with the newest-first history merge
+               (0 to 3 new blocks among the 8 streams of a thread block)
   4. golden    run_streams_fused through the kernels == the JAX package's
                answer stored in tests/data/torch_golden_16k.npz
-  5. main      the 16 kHz desync scene at 4096 streams x 1 s through the
+  5. golden    every entry of tests/data/torch_golden_envelope.npz out of
+     envelope  the kernel path: run_streams_fused at 8 and 16 kHz with
+               tails, clean inputs and per-stream modes, the 10 ms step
+               (abs_approx too), single frames calls in each mode,
+               AecmInstance, a JAX checkpoint resumed on both engines
+  6. main      the 16 kHz desync scene at 4096 streams x 1 s through the
                fused engine's kernel path == its plain path; the frames and
                ring kernels must each launch once per step (50 steps)
-  6. golden    run_streams (batch-major) through the kernels == the JAX
+  7. golden    run_streams (batch-major) through the kernels == the JAX
      batch     package's answers in tests/data/torch_golden_batch.npz, for
                each configuration there (8/16 kHz, single/clean input)
-  7. main      the same 16 kHz desync scene through run_streams: kernel path
+  8. main      the same 16 kHz desync scene through run_streams: kernel path
      batch     == plain path, exactly 100 ring_write and 100 ring_read
                launches (one of each per 10 ms chunk), and output and state
-               == the fused engine's (phase 5)
-  8. 8 kHz     4096 streams x 0.5 s at 8 kHz with a clean near input through
+               == the fused engine's (phase 6)
+  9. 8 kHz     4096 streams x 0.5 s at 8 kHz with a clean near input through
      clean     run_streams: kernel path == plain path, 50 writes, 50 reads
-  9. timing    streams served at 1x real time on each engine's kernel and
-               plain paths (CUDA events); a batch-major chunk's kernel
+ 10. envelope  AecmPipeline("fused") == AecmPipeline("xla") at 4096 streams,
+               8 and 16 kHz, single and clean: run over 1.05 s (a one-chunk
+               tail) then 20 steps of 10 ms; output, warnings and state
+               equal, and the launches exact (one frames kernel per fused
+               step, one ring_multi_pass per multi-chunk step, one ring_pass
+               per 10 ms fused step, one ring_write and one ring_read per
+               batch-major chunk)
+ 11. timing    streams served at 1x real time on each engine's kernel and
+               plain paths at 16 kHz and on the kernel paths at 8 kHz (CUDA
+               events); the real-time step's wall ms per 10 ms chunk at 8
+               and 16 kHz on both engines; a batch-major chunk's kernel
                launches and device work (torch.profiler); each kernel's time
                per launch (CUDA events, its wrapper's host time alone, and
                its device time alone from the profiler) beside its plain
@@ -49,8 +72,8 @@ final line):
                by what a plain run shows the data to need, over the
                card's int32 rate) and, where PyTorch calls compute the same
                function, their time; the frames kernel at 1024, 4096 and
-               16384 streams; the launch floor (an empty kernel
-               through the same binding); what the stream handle, an
+               16384 streams and in each mode; the launch floor (an empty
+               kernel through the same binding); what the stream handle, an
                argument check and the output allocations cost the host
 The kernels JSON keeps the names of the TPU kernels: `ring_gather` is the
 read kernel (ring_kernels.ring_read), which took the gather over.
@@ -129,11 +152,21 @@ FRAMES_OPS = {
     "hnl squared": (299, "mult == 2: 65 x 3 + 21 + 1 + 41 x 2"),
     "NLP": (587, "nlp_flag: 65 bins x 9 + 2"),
     "comfort noise": (2015, "cng_mode: 65 bins x 31"),
+    "clean transform": (
+        FFT_BUTTERFLIES * BUTTERFLY_OPS + FORWARD_REST_OPS + 65 * 2,
+        "has_clean: a third forward transform per active block (the twiddle "
+        "negate shared), its magnitudes stored 65 x 2"),
+    "abs_approx magnitudes": (
+        63, "abs_approx: 63 bins x (20 - 19) per forward transform: max, "
+        "min, 2 shifts, 2 compares, 4 selects, 2 multiplies, 2 shifts, 2 "
+        "converts, 2 ands, an add and an and, for 2 multiplies, a "
+        "saturating add (6) and sqrt_floor (11)"),
     "inactive slot": (
         FFT_BUTTERFLIES * (1 + BUTTERFLY_OPS) + FORWARD_REST_OPS + 320 + 170,
-        "one forward transform, 64 samples x 5, the packing 170"),
-    "step": (4 * (80 + 64) * 8 + 128 * 5 + 60,
-             "the emit 4 x (80 + 64) samples x 8, the in-carry 128 x 5, 60"),
+        "circular history: one forward transform, 64 samples x 5, the "
+        "packing 170"),
+    "frame": ((80 + 64) * 8, "the emit of a frame: (80 + 64) samples x 8"),
+    "step": (128 * 5 + 60, "the in-carry 128 x 5, 60"),
 }
 
 
@@ -337,30 +370,75 @@ def phase_card():
     return res.stdout.strip().splitlines()[0]
 
 
+def ptxas_entries(report):
+    """{entry function: {registers, stack, spill stores, spill loads}} from
+    nvcc -Xptxas -v output."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(
+                m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def frames_instance(entry):
+    """(has_clean, circular) of a frames_step_kernel<CLEAN, CIRC> entry,
+    from its mangled template arguments; None for another kernel."""
+    import re
+    m = re.search(r"frames_step_kernelILb([01])ELb([01])E", entry)
+    return None if m is None else (m.group(1) == "1", m.group(2) == "1")
+
+
 def phase_build():
-    from webrtc_aecm_tpu_torch import _build
+    from webrtc_aecm_tpu_torch import _build, fused_kernel
     _build.build()
     _build.load_library()
     report = _build.build_info.get("ptxas", "")
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
-    from webrtc_aecm_tpu_torch import fused_kernel
-    lay = fused_kernel.frames_layout()
-    log(f"  frames kernel: one warp per stream, {lay['streams_per_block']} "
-        f"streams per block, {lay['smem_bytes']} bytes of shared memory per "
-        f"block, {lay['blocks_per_sm']} blocks = {lay['warps_per_sm']} "
-        "resident warps per SM")
+    for entry, info in ptxas_entries(report).items():
+        inst = frames_instance(entry)
+        if inst is None:
+            continue
+        lay = fused_kernel.frames_layout(*inst)
+        log(f"  frames kernel, {'clean' if inst[0] else 'single'} input, "
+            f"{'circular' if inst[1] else 'newest-first'} history: "
+            f"{info.get('registers')} registers, {info.get('stack')} bytes "
+            f"of stack frame, {info.get('spill_stores')} / "
+            f"{info.get('spill_loads')} bytes spilled; one warp per stream, "
+            f"{lay['streams_per_block']} streams per block, "
+            f"{lay['smem_bytes']} bytes of shared memory per block, "
+            f"{lay['blocks_per_sm']} blocks = {lay['warps_per_sm']} "
+            "resident warps per SM")
+        if inst == (False, True) and (
+                info.get("stack") or info.get("spill_stores")
+                or lay["smem_bytes"] != 108160 or lay["warps_per_sm"] != 16):
+            log("  WARNING: the single-input circular instance lost its "
+                "layout (no stack, no spill, 108160 bytes, 16 warps per SM)")
     return _build.build_info
 
 
 class StepCapture:
-    """Wraps the two kernel wrappers for a few steps of the kernel path:
-    each call also runs the plain version on copies of the same inputs and
-    must agree with it bit for bit."""
+    """Wraps the three kernel wrappers of the fused step for a few steps of
+    the kernel path: each call also runs the plain version on copies of the
+    same inputs and must agree with it bit for bit."""
 
     def __init__(self):
-        self.worst = {"frames": 0.0, "ring": 0.0}
+        self.worst = {"frames": 0.0, "ring": 0.0, "ring_pass": 0.0}
         self.ring_args = None
         self.frames_args = None
 
@@ -370,6 +448,7 @@ class StepCapture:
         self.fk, self.rk, self.fused = fused_kernel, ring_kernels, fused
         self.orig_frames = fused_kernel.frames_kernel_call
         self.orig_ring = ring_kernels.ring_multi_pass
+        self.orig_pass = ring_kernels.ring_pass
         cap = self
 
         def frames(core, t, *rest):
@@ -388,13 +467,24 @@ class StepCapture:
                 "ring kernel", got, ref))
             return got
 
+        def one(data, wpos, values, n_write, rpos, n_read):
+            ref = fused._ring_write_gather_multi(
+                data.clone(), wpos[None], values, n_write[None], rpos[None],
+                n_read)
+            got = cap.orig_pass(data, wpos, values, n_write, rpos, n_read)
+            cap.worst["ring_pass"] = max(cap.worst["ring_pass"], compare_trees(
+                "ring_pass kernel", got, ref))
+            return got
+
         fused_kernel.frames_kernel_call = frames
         ring_kernels.ring_multi_pass = ring
+        ring_kernels.ring_pass = one
         return self
 
     def __exit__(self, *exc):
         self.fk.frames_kernel_call = self.orig_frames
         self.rk.ring_multi_pass = self.orig_ring
+        self.rk.ring_pass = self.orig_pass
         return False
 
 
@@ -412,7 +502,7 @@ class PlainProbe:
     def __init__(self, torch, core, run_rows):
         self.torch = torch
         n_act = (core.frame_fill[0] + 80 * run_rows.sum(0)) >> 6
-        self.act = [n_act > s for s in range(5)]
+        self.act = [n_act > s for s in range(5)]   # at most 5 slots
         self.slot, self.in_ifft = -1, False
         self.seen, self.count = {}, {"active block": sum(
             a.sum() for a in self.act)}
@@ -488,31 +578,46 @@ class PlainProbe:
 
 
 def widen_frames_args(torch, frames_args, b):
-    """A captured frames_step call (core, tables, far, noisy, phase,
-    run_rows, mult, n_frames, fpc, head) repeated along the stream axis to b
-    streams; every tensor is a fresh contiguous copy."""
+    """A captured frames_step call (core, tables, far, noisy, clean, phase,
+    run_rows, mult, n_frames, has_clean, abs_approx, fpc, head) repeated
+    along the stream axis to b streams; every tensor is a fresh contiguous
+    copy."""
     from webrtc_aecm_tpu_torch._tree import tree_map
-    core, t, far, noisy, phase, run_rows, *tail = frames_args
+    core, t, far, noisy, clean, phase, run_rows, *tail = frames_args
     b0 = far.shape[1]
 
     def widen(x):
+        if x is None:
+            return None
         return torch.cat([x] * (b // b0) + [x[:, :b % b0]],
                          dim=1).contiguous()
-    return (tree_map(widen, core), t, widen(far), widen(noisy), widen(phase),
-            widen(run_rows)) + tuple(tail)
+    return (tree_map(widen, core), t, widen(far), widen(noisy), widen(clean),
+            widen(phase), widen(run_rows)) + tuple(tail)
 
 
 def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
     """Inputs of one frames_step call at b streams with the cases a
     lane-parallel kernel is most likely to get wrong, planted by stream
-    index on a warm state (a captured call of the desync scene, repeated to
-    b streams).  Returns (core, rest of the arguments, {category: mask})."""
+    index on a warm state (a captured call, repeated to b streams; its mode
+    -- frame count, clean input, abs_approx -- is kept, `head` replaces its
+    history head: None for the newest-first history).  Returns (core, rest
+    of the arguments, {category: mask})."""
     from webrtc_aecm_tpu_torch import fused
-    core, t, far, noisy, phase, run_rows, mult, n_frames, fpc, _ = \
-        widen_frames_args(torch, frames_args, b)
+    (core, t, far, noisy, clean, phase, run_rows, mult, n_frames, has_clean,
+     abs_approx, fpc, _) = widen_frames_args(torch, frames_args, b)
+    fs = 8000 * mult
     rng = np.random.default_rng(seed)
     i = torch.arange(b, device=dev)
     cats = {}
+    near_ins = [noisy] + ([clean] if has_clean else [])
+    near_bufs = [core.d_buf_noisy, core.in_carry_noisy] + (
+        [core.d_buf_clean, core.in_carry_clean] if has_clean else [])
+
+    # the streams of the history-shift case (below), which take their own
+    # fills and run rows
+    shift_case = head is None and n_frames == 2 and fpc == 1
+    hist_m = ((i // 8) % 3 == 0) if shift_case else torch.zeros_like(
+        i, dtype=torch.bool)
 
     def where(name, mask):
         cats[name] = mask
@@ -524,7 +629,9 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
 
     # a fresh state: every mean_bit_counts row equal, histories empty
     m = where("fresh state (all minima equal)", i % 5 == 0)
-    fresh = fused._to_circular_far(fused.create_fused(b, FS, device=dev).core)
+    fresh = fused.create_fused(b, fs, device=dev).core
+    if head is not None:
+        fresh = fused._to_circular_far(fresh)
     for (_, leaf), (_, new) in zip(flatten(core), flatten(fresh)):
         leaf[:, m] = new[:, m]
     # two equal valleys that the far-end rows sliding past them leave alone
@@ -536,34 +643,37 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
     # re-blocking: the carry fill with the out fill of a running stream, or
     # of one still in its first frames (out fill 0: zero-stuffing)
     for fill in (0, 16, 32, 48):
-        m = where(f"frame_fill {fill}", i % 4 == fill // 16)
+        m = where(f"frame_fill {fill}", (i % 4 == fill // 16) & ~hist_m)
         put(core.frame_fill, m, fill)
         put(core.out_fill, m & (i % 8 < 4), 48 - fill)
         put(core.out_fill, m & (i % 8 >= 4), 0)
-    for name, rows, cls in (("run_rows all false", [0, 0, 0, 0], 0),
-                            ("run_rows last two", [0, 0, 1, 1], 1),
-                            ("run_rows all four", [1, 1, 1, 1], 2)):
-        m = where(name, (i // 4) % 3 == cls)
+    last = [0] * (n_frames - fpc) + [1] * fpc
+    for name, rows, cls in (("run_rows none", [0] * n_frames, 0),
+                            ("run_rows the last chunk", last, 1),
+                            ("run_rows all", [1] * n_frames, 2)):
+        m = where(name, ((i // 4) % 3 == cls) & ~hist_m)
         run_rows[:, m] = torch.as_tensor(rows, dtype=torch.bool,
                                          device=dev)[:, None]
-    # fixed delays: in the step's own pending blocks (0..4), just past them,
-    # and on the circular history on both sides of the head
+    # fixed delays: in the step's own pending blocks, just past them, and
+    # deep in the history (for the circular one on both sides of the head)
     fixed = torch.as_tensor([0, 2, 4, 5, 50, 97, 99], dtype=torch.int32,
                             device=dev)[(i // 11) % 7]
-    m = where("fixed_delay >= 0", i % 11 == 2)
+    m = where("fixed_delay >= 0", (i % 11 == 2) & ~hist_m)
     core.fixed_delay[0, m] = fixed[m]
     where("fixed delay in the pending blocks", m & (fixed <= 4))
-    where("fixed delay past the head wrap",
-          m & (fixed - 5 >= 0) & (head + 99 - (fixed - 5) >= 100))
-    where("fixed delay before the head wrap",
-          m & (head + 99 - (fixed - 1) < 100))
+    if head is not None:
+        where("fixed delay past the head wrap",
+              m & (fixed - 5 >= 0) & (head + 99 - (fixed - 5) >= 100))
+        where("fixed delay before the head wrap",
+              m & (head + 99 - (fixed - 1) < 100))
+    else:
+        where("fixed delay deep in the history", m & (fixed >= 50))
     # a silent near end under full suppression over a saturated noise
     # estimate: comfort noise at full scale in every bin, the largest input
     # the inverse transform can get
     m = where("silent near end over a full-scale noise estimate",
               i % 37 == 12)
-    for leaf in (noisy, core.d_buf_noisy, core.in_carry_noisy,
-                 core.near_filt):
+    for leaf in near_ins + near_bufs + [core.near_filt]:
         put(leaf, m, 0)
     put(core.noise_est, m, 0x7FFFFFFF)
     put(core.cng_mode, m, 1)
@@ -589,20 +699,41 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
             ("full-scale tone", 1, tone[:, None]),
             ("full-scale constant", 2, np.full((n, 1), 32767))):
         m = where(name, (i % 23 == 9) & ((i // 23) % 3 == cls))
-        put(far, m, wave)
-        put(noisy, m, wave)
+        for leaf in [far] + near_ins:
+            put(leaf, m, wave)
     m = where("all-zero inputs and filters", i % 29 == 10)
-    for leaf in (far, noisy, core.x_buf, core.d_buf_noisy, core.in_carry_far,
-                 core.in_carry_noisy, core.near_filt, core.echo_filt):
+    for leaf in [far, core.x_buf, core.in_carry_far, core.echo_filt,
+                 core.near_filt] + near_ins + near_bufs:
         put(leaf, m, 0)
+    if shift_case:
+        # the newest-first history merge: in every third block of 8 streams
+        # the 8 streams take 0, 1, 2 and 3 new blocks (fill0, active frames
+        # by stream), and some read fixed delays at the rows that shift
+        g = i % 8
+        m = where("history shift: 0 to 3 new blocks in one block of 8",
+                  hist_m)
+        fills = torch.as_tensor([0, 0, 48, 32, 0, 16, 48, 48], device=dev)
+        ks = torch.as_tensor([0, 1, 1, 2, 2, 1, 2, 0], device=dev)
+        core.frame_fill[0, m] = fills[g[m]].to(core.frame_fill.dtype)
+        for f in range(n_frames):
+            run_rows[f, m] = (f >= n_frames - ks[g[m]])
+        delays = torch.as_tensor([-1, 0, 2, 3, 4, 97, 98, 99],
+                                 device=dev)[(i // 8) % 8]
+        core.fixed_delay[0, m] = delays[m].to(core.fixed_delay.dtype)
+        for v in (0, 1, 2, 3):
+            where(f"history shift by {v} blocks",
+                  m & (((core.frame_fill[0] + 80 * run_rows.sum(0)) >> 6)
+                       == v))
+        where("history shift with a fixed delay at the rows that move",
+              m & (core.fixed_delay[0] >= 97))
     lows = core.de_near.mean_bit_counts[:100]
     where("equal minima in mean_bit_counts",
           (lows == lows.min(0).values).sum(0) >= 2)
-    return core, (t, far, noisy, phase, run_rows, mult, n_frames, fpc,
-                  head), cats
+    return core, (t, far, noisy, clean, phase, run_rows, mult, n_frames,
+                  has_clean, abs_approx, fpc, head), cats
 
 
-def frames_planted_check(torch, dev, frames_args, b, head):
+def frames_planted_check(torch, dev, frames_args, b, head, tag=""):
     """The frames kernel == fused.frames_step on the planted case at b
     streams: every output and every core leaf; fails if a category of the
     case has no stream.  What the full-scale inputs are there to reach (each
@@ -610,7 +741,7 @@ def frames_planted_check(torch, dev, frames_args, b, head):
     read off the plain run, not off what was planted."""
     from webrtc_aecm_tpu_torch import fused, fused_kernel
     core, rest, cats = frames_planted_case(torch, dev, frames_args, b, head)
-    with PlainProbe(torch, core, rest[4]) as probe:
+    with PlainProbe(torch, core, rest[5]) as probe:
         ref = fused.frames_step(fused.clone_state(core), *rest)
     reached = [f"an inverse-transform stage shifting by {v}"
                for v in (0, 1, 2)] + [
@@ -621,11 +752,12 @@ def frames_planted_check(torch, dev, frames_args, b, head):
                  for k in reached})
     missing = [k for k, m in cats.items() if not bool(m.any())]
     if missing:
-        fail(f"frames planted case B={b} lacks: {missing}")
+        fail(f"frames planted case {tag} B={b} lacks: {missing}")
     got = fused_kernel.frames_kernel_call(core, *rest)
     torch.cuda.synchronize()
-    worst = compare_trees(f"frames kernel, planted case B={b}", got, ref)
-    log(f"  frames kernel == plain on the planted case at B={b}, head "
+    worst = compare_trees(f"frames kernel, planted case {tag} B={b}", got,
+                          ref)
+    log(f"  frames kernel == plain on the planted case {tag} at B={b}, head "
         f"{head}: " + ", ".join(f"{k} ({int(m.sum())})"
                                 for k, m in cats.items()))
     return worst
@@ -691,10 +823,365 @@ def ring_io_case(torch, dev, b, n, rng):
     return ring, values, t(i % 4 != 0, np.bool_)
 
 
+# the modes of the frames kernel held against its plain version on the
+# card: (name, sample rate, chunks per step, clean input, abs_approx); the
+# first is the main path's
+FRAMES_MODES = (
+    ("16k circular", 16000, 2, False, False),
+    ("8k circular", 8000, 4, False, False),
+    ("8k 2 slots", 8000, 1, False, False),
+    ("8k 3 slots clean", 8000, 2, True, False),
+    ("8k 4 slots abs_approx", 8000, 3, False, True),
+    ("16k 3 slots clean abs_approx", 16000, 1, True, True),
+    ("16k circular clean", 16000, 2, True, False),
+    ("16k 3 slots, the 10 ms step", 16000, 1, False, False),
+)
+
+
+def capture_mode(torch, dev, fs, cps, with_clean, abs_approx, b, n_warm,
+                 n_check):
+    """A fused step of this mode over the desync scene at b streams: n_warm
+    steps on the plain path, then n_check on the kernel path with every
+    kernel launch checked against its plain version.  Returns the
+    StepCapture (the last frames call's arguments, the worst differences)."""
+    from webrtc_aecm_tpu_torch import fused
+    chunk = fs // 100
+    n_chunks = cps * (n_warm + n_check)
+    far, near, ms = desync_scene(b, n_chunks, n_chunks // 2, 5, 64, fs=fs)
+    dv = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    far_t, near_t, ms_t = dv(far).int(), dv(near).int(), dv(ms)
+    cl_t = dv(clean_input(far)).int() if with_clean else None
+    st = fused.create_fused(b, fs, device=dev)
+    head, capture = 0, None
+    for s in range(n_warm + n_check):
+        if s in (0, n_warm):
+            step = fused.FusedAecm(fs, cps, use_kernel=s == n_warm,
+                                   device=dev, has_clean=with_clean,
+                                   abs_approx=abs_approx,
+                                   lane_major_io=False)
+        if s == 0 and step.circular_far:
+            st = st._replace(core=fused._to_circular_far(st.core))
+        if s == n_warm:
+            capture = StepCapture().__enter__()
+        cols = slice(s * cps * chunk, (s + 1) * cps * chunk)
+        xs = (far_t[:, cols], near_t[:, cols]) + (
+            (cl_t[:, cols],) if with_clean else ()) + (
+            ms_t[s * cps:(s + 1) * cps],)
+        if step.circular_far:
+            st, head, _, _ = step(st, head, *xs)
+        else:
+            st, _, _ = step(st, *xs)
+    torch.cuda.synchronize()
+    capture.__exit__()
+    return capture
+
+
+def frames_widened_check(torch, captured, b, tag):
+    """The frames kernel == plain on a captured call repeated to b
+    streams (a ragged last block at 4099)."""
+    from webrtc_aecm_tpu_torch import fused, fused_kernel
+    args = widen_frames_args(torch, captured, b)
+    ref = fused.frames_step(fused.clone_state(args[0]), *args[1:])
+    got = fused_kernel.frames_kernel_call(*args)
+    torch.cuda.synchronize()
+    return compare_trees(f"frames kernel, {tag}, B={b}", got, ref)
+
+
+def envelope_tool():
+    """tools/make_torch_golden_envelope.py as a module: its scenes and
+    entry tables (numpy only at import)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_golden_envelope",
+        os.path.join(REPO, "tools", "make_torch_golden_envelope.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def golden_tree(g, prefix, like):
+    """The numpy leaves of golden file g under `prefix` + dotted field
+    path, in the tree structure of the port state `like`."""
+    from types import SimpleNamespace
+
+    def build(tree, at):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return SimpleNamespace(**{f: build(getattr(tree, f), f"{at}{f}.")
+                                      for f in tree._fields})
+        return g[prefix + at[:-1]]
+    return build(like, "")
+
+
+def golden_state_check(tag, got_np_state, g, prefix):
+    """Every leaf of a port state (numpy, the JAX dtypes) == golden file
+    g's leaves under prefix; returns the number of leaves."""
+    from webrtc_aecm_tpu_torch._tree import tree_leaves_with_path
+    n = 0
+    for path, leaf in tree_leaves_with_path(got_np_state):
+        ref = g[prefix + path]
+        if leaf.dtype != ref.dtype or not np.array_equal(leaf, ref):
+            fail(f"golden envelope {tag}: state leaf {path} differs from "
+                 "the JAX package's")
+        n += 1
+    return n
+
+
+def phase_golden_envelope(torch, dev):
+    """Every JAX answer of tests/data/torch_golden_envelope.npz out of the
+    kernel path on the card: run_streams_fused (8 and 16 kHz, clean, tails,
+    per-stream modes, bench.py's scene), the 10 ms step (abs_approx too),
+    single frames calls in every mode, AecmInstance, and a JAX checkpoint
+    resumed by AecmPipeline on both engines."""
+    import tempfile
+    from webrtc_aecm_tpu_torch import convert, fused, fused_kernel
+    from webrtc_aecm_tpu_torch.api import AecmInstance
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    from webrtc_aecm_tpu_torch.parallel import batch as pbatch
+    gen = envelope_tool()
+    g = np.load(os.path.join(REPO, "tests", "data",
+                             "torch_golden_envelope.npz"))
+    b, n_leaves, n_entries = gen.B, 0, 0
+
+    def start(fs, config):
+        st = pbatch.create_batch(b, fs, device=dev)
+        if config:
+            st = pbatch.set_config_batch(st, *gen.stream_modes(b))
+        return fused.to_fused_state(st)
+
+    def same_out(tag, out, ref):
+        if not np.array_equal(out.cpu().numpy(), ref.astype(np.int32)):
+            fail(f"golden envelope {tag}: outputs differ from the JAX "
+                 "package's")
+
+    launches0 = fused_kernel.frames_kernel_call.launches
+    runs = dict(gen.RSF, bench16k=(16000, gen.BENCH["n_chunks"], 0, 0,
+                                   False, False))
+    for name, (fs, n_chunks, burst, seed, with_clean, config) in runs.items():
+        if name == "bench16k":
+            far, near = gen.bench_scene(b, n_chunks)
+            clean, ms = None, 40
+        else:
+            far, near, clean = gen.scene(fs, b, n_chunks, seed, with_clean)
+            ms = gen.desync_ms(n_chunks, b, burst) if not config else 40
+        fin, out = fused.run_streams_fused(start(fs, config), far, near, fs,
+                                           ms, use_kernel=True, clean=clean)
+        torch.cuda.synchronize()
+        same_out(f"rsf.{name}", out, g[f"rsf.{name}.out"])
+        n_leaves += golden_state_check(f"rsf.{name}",
+                                       convert.fused_state_to_numpy(fin), g,
+                                       f"rsf.{name}.state.")
+        n_entries += 1
+    for name, (fs, n_chunks, burst, seed, config, absa) in gen.STEP.items():
+        chunk = fs // 100
+        far, near, _ = gen.scene(fs, b, n_chunks, seed)
+        ms = (gen.desync_ms(n_chunks, b, burst) if not config
+              else np.full((n_chunks, b), 40, np.int32))
+        step = fused.make_fused_chunk_step(fs, abs_approx=absa, device=dev)
+        st, outs, warns = start(fs, config), [], []
+        for c in range(n_chunks):
+            cols = slice(c * chunk, (c + 1) * chunk)
+            st, out, warn = step(st, torch.as_tensor(far[:, cols],
+                                                     device=dev),
+                                 torch.as_tensor(near[:, cols], device=dev),
+                                 torch.as_tensor(ms[c], device=dev))
+            outs.append(out)
+            warns.append(warn)
+        torch.cuda.synchronize()
+        same_out(f"step.{name}", torch.cat(outs, 1), g[f"step.{name}.out"])
+        if not np.array_equal(torch.stack(warns).cpu().numpy(),
+                              g[f"step.{name}.warn"]):
+            fail(f"golden envelope step.{name}: warnings differ")
+        n_leaves += golden_state_check(f"step.{name}",
+                                       convert.fused_state_to_numpy(st), g,
+                                       f"step.{name}.state.")
+        n_entries += 1
+    for name, (src, n_frames, has_clean, absa, head, _) in gen.FRAMES.items():
+        fs = gen.RSF[src][0]
+        like = fused.create_fused(b, fs, device=dev)
+        core = convert.fused_state_from_numpy(golden_tree(
+            g, f"rsf.{src}.state.", like), device=dev).core
+        if head >= 0:
+            core = fused._to_circular_far(core)
+            h3 = core.far_history.view(100, 40, b)
+            core = core._replace(
+                far_history=torch.roll(h3, head, 0).reshape(-1, b
+                                                            ).contiguous(),
+                far_q_domains=torch.roll(core.far_q_domains, head, 0
+                                         ).contiguous())
+        p = f"frames.{name}"
+        dv = lambda k: torch.as_tensor(g[f"{p}.{k}"], device=dev)  # noqa
+        core = core._replace(seed=torch.as_tensor(
+            g[f"{p}.seed_in"].astype(np.int64), device=dev))
+        t = fused.make_tables(dev, fused._n_slots_for(n_frames))
+        res = fused_kernel.frames_kernel_call(
+            core, t, dv("far"), dv("noisy"),
+            dv("clean") if has_clean else None, dv("phase"), dv("run_rows"),
+            fs // 8000, n_frames, has_clean, absa, (fs // 100) // 80,
+            None if head < 0 else head)
+        torch.cuda.synchronize()
+        same_out(p, res[1], g[f"{p}.out"])
+        if head >= 0:
+            for i, k in ((2, "pend_hist"), (3, "pend_q")):
+                if not np.array_equal(res[i].cpu().numpy(), g[f"{p}.{k}"]):
+                    fail(f"golden envelope {p}: {k} differs")
+        n_leaves += golden_state_check(
+            p, convert.fused_state_to_numpy(like._replace(core=res[0])).core,
+            g, f"{p}.state.")
+        n_entries += 1
+    frames_launches = fused_kernel.frames_kernel_call.launches - launches0
+    for name, (fs, n_chunks, seed, robust, delay, nlp, ep_seed) in \
+            gen.API.items():
+        far, near, _ = gen.scene(fs, 1, n_chunks, seed)
+        inst = AecmInstance(fs, robust_validation=robust, device=dev)
+        if ep_seed >= 0:
+            ep = np.random.default_rng(ep_seed).integers(0, 4000, 65)
+            inst.init_echo_path(ep.astype(np.int16))
+        inst.set_control(delay, nlp)
+        out = inst.run_file_pair(far[0], near[0], 40)
+        p = f"api.{name}"
+        if not (np.array_equal(out, g[f"{p}.out"])
+                and np.array_equal(inst.get_echo_path(), g[f"{p}.echo_path"])
+                and np.float32(inst.delay_quality())
+                == g[f"{p}.delay_quality"]):
+            fail(f"golden envelope {p}: AecmInstance differs from the JAX "
+                 "package's")
+        n_entries += 1
+    c = gen.CKPT
+    chunk = c["fs"] // 100
+    far, near, _ = gen.scene(c["fs"], c["n_streams"],
+                             c["n_first"] + c["n_next"], c["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        np.savez(path, **{k[len("ckpt.file."):]: g[k] for k in g.files
+                          if k.startswith("ckpt.file.")})
+        for engine in ("fused", "xla"):
+            pipe = AecmPipeline(c["n_streams"], c["fs"], engine=engine,
+                                device=dev)
+            pipe.load(path)
+            out = pipe.run(far[:, c["n_first"] * chunk:],
+                           near[:, c["n_first"] * chunk:])
+            torch.cuda.synchronize()
+            same_out(f"ckpt resumed on the {engine} engine", out,
+                     g["ckpt.next_out"])
+            n_entries += 1
+    return n_entries, n_leaves, frames_launches
+
+
+ENVELOPE_CHUNKS, ENVELOPE_STEPS = 105, 20
+
+
+def counted(torch, fn):
+    """fn() with every kernel's launch counter set to 0 just before and
+    read just after."""
+    from webrtc_aecm_tpu_torch import fused_kernel
+    from webrtc_aecm_tpu_torch.ops import ring_kernels as rk
+    wrappers = {"frames_step": fused_kernel.frames_kernel_call,
+                "ring_multi_pass": rk.ring_multi_pass,
+                "ring_pass": rk.ring_pass, "ring_write": rk.ring_write,
+                "ring_gather": rk.ring_read}
+    for w in wrappers.values():
+        w.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {k: w.launches for k, w in wrappers.items()}
+
+
+def phase_envelope(torch, dev):
+    """At 4096 streams, AecmPipeline("fused") == AecmPipeline("xla"), both
+    on the card: run over 1.05 s (a tail of one chunk) and then 20 steps of
+    10 ms, at 8 and 16 kHz, single and clean; output, warnings and state
+    equal, and each engine's launches exactly one frames kernel per fused
+    step, one ring_multi_pass per multi-chunk step, one ring_pass per 10 ms
+    fused step, one ring_write and one ring_read per batch-major chunk."""
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    totals, worst = {}, 0.0
+    n_all = ENVELOPE_CHUNKS + ENVELOPE_STEPS
+    for fs in (8000, 16000):
+        chunk, cps = fs // 100, (4 if fs == 8000 else 2)
+        far, near, ms = desync_scene(B_FULL, n_all, 60, 5, 64, fs=fs)
+        dv = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+        far, near, ms = dv(far).int(), dv(near).int(), dv(ms)
+        for with_clean in (False, True):
+            cl = dv(clean_input(far.cpu().numpy())).int() if with_clean \
+                else None
+            tag = f"{fs // 1000} kHz {'clean' if with_clean else 'single'}"
+            span = slice(0, ENVELOPE_CHUNKS * chunk)
+            n_super, rem = divmod(ENVELOPE_CHUNKS, cps)
+            want = {
+                "fused": {"frames_step": n_super + (rem > 0)
+                          + ENVELOPE_STEPS,
+                          "ring_multi_pass": n_super + (rem > 1),
+                          "ring_pass": (rem == 1) + ENVELOPE_STEPS,
+                          "ring_write": 0, "ring_gather": 0},
+                "xla": {"frames_step": 0, "ring_multi_pass": 0,
+                        "ring_pass": 0, "ring_write": n_all,
+                        "ring_gather": n_all}}
+            outs = {}
+            for engine in ("fused", "xla"):
+                pipe = AecmPipeline(B_FULL, fs, engine=engine, device=dev)
+
+                def serve():
+                    o = [pipe.run(far[:, span], near[:, span],
+                                  None if cl is None else cl[:, span],
+                                  ms[:ENVELOPE_CHUNKS])]
+                    w = []
+                    for c in range(ENVELOPE_CHUNKS, n_all):
+                        s = slice(c * chunk, (c + 1) * chunk)
+                        oc, wc = pipe.step(far[:, s], near[:, s],
+                                           None if cl is None else cl[:, s],
+                                           ms[c])
+                        o.append(oc)
+                        w.append(wc)
+                    return torch.cat(o, 1), torch.stack(w)
+                (out, warn), launches = counted(torch, serve)
+                if launches != want[engine]:
+                    fail(f"envelope {tag} {engine}: launches {launches}, "
+                         f"expected {want[engine]}")
+                for k, v in launches.items():
+                    totals[k] = totals.get(k, 0) + v
+                outs[engine] = (out, warn, pipe._canonical())
+            if outs["fused"][0].shape != (B_FULL, n_all * chunk):
+                fail(f"envelope {tag}: output shape "
+                     f"{tuple(outs['fused'][0].shape)}")
+            worst = max(worst, compare_trees(f"envelope {tag}, fused == xla",
+                                             outs["fused"], outs["xla"]))
+            log(f"  {tag}: fused == xla at B={B_FULL} over "
+                f"{ENVELOPE_CHUNKS} chunks of run and {ENVELOPE_STEPS} steps "
+                f"(output, warnings, every state leaf); launches "
+                f"{want['fused']} and {want['xla']}")
+    return totals, worst
+
+
+def realtime_step_ms(torch, dev, engine, fs, n_warm=30, n_timed=50):
+    """Wall ms per 10 ms chunk of AecmPipeline.step at 4096 streams (CUDA
+    events around n_timed steps after n_warm; the desync scene without its
+    delay burst or its per-stream offsets)."""
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    chunk = fs // 100
+    far, near, _ = desync_scene(B_FULL, n_warm + n_timed, 10 ** 6, 0, 1,
+                                fs=fs)
+    far = torch.as_tensor(far, device=dev).int()
+    near = torch.as_tensor(near, device=dev).int()
+    pipe = AecmPipeline(B_FULL, fs, engine=engine, device=dev)
+    cols = lambda c: slice(c * chunk, (c + 1) * chunk)  # noqa: E731
+    for c in range(n_warm):
+        pipe.step(far[:, cols(c)], near[:, cols(c)])
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for c in range(n_warm, n_warm + n_timed):
+        pipe.step(far[:, cols(c)], near[:, cols(c)])
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / n_timed
+
+
 def phase_kernels(torch, dev):
     from webrtc_aecm_tpu_torch import fused
     from webrtc_aecm_tpu_torch.ops import ring_buffer, ring_kernels
-    worst = {"frames": 0.0, "ring": 0.0, "gather": 0.0, "write": 0.0}
+    worst = {"frames": 0.0, "ring": 0.0, "ring_pass": 0.0, "gather": 0.0,
+             "write": 0.0}
     rng = np.random.default_rng(1)
     for n in (80, 160):
         ring, values, gate = ring_io_case(torch, dev, B_FULL, n, rng)
@@ -746,38 +1233,36 @@ def phase_kernels(torch, dev):
                 got = ring_kernels.ring_multi_pass(data.clone(), wpos,
                                                    values, n_write, rpos, n)
             torch.cuda.synchronize()
-            worst["ring"] = max(worst["ring"], compare_trees(
+            key = "ring_pass" if cps == 1 else "ring"
+            worst[key] = max(worst[key], compare_trees(
                 f"ring kernel cps={cps} clamped={frac}", got, ref))
             log(f"  ring kernel == plain: cps={cps}, clamped share {frac}")
 
-    # frames kernel: warm 20 steps on the plain path, then 5 steps through
-    # the kernels, each launch checked against the plain version
-    far, near, ms = desync_scene(B_FULL, 50, 30, 5, 64)
-    step = fused.FusedAecm(FS, CPS, use_kernel=False, device=dev)
-    st = fused.create_fused(B_FULL, FS, device=dev)
-    st = st._replace(core=fused._to_circular_far(st.core))
-    far_t = torch.as_tensor(far, device=dev).to(torch.int32)
-    near_t = torch.as_tensor(near, device=dev).to(torch.int32)
-    ms_t = torch.as_tensor(ms, device=dev)
-    head = 0
-    for s in range(25):
-        if s == 20:
-            step = fused.FusedAecm(FS, CPS, use_kernel=True, device=dev)
-            capture = StepCapture().__enter__()
-        lo = s * STEP_LEN
-        st, head, _, _ = step(st, head, far_t[:, lo:lo + STEP_LEN],
-                              near_t[:, lo:lo + STEP_LEN].T,
-                              ms_t[s * CPS:(s + 1) * CPS])
-    torch.cuda.synchronize()
-    capture.__exit__()
-    log("  frames kernel == plain on 5 steps after 20 warm-up steps "
-        "(outputs, pending blocks, every core leaf)")
-    for k in ("frames", "ring"):
-        worst[k] = max(worst[k], capture.worst[k])
+    # frames kernel, every mode: warm steps on the plain path, then steps
+    # through the kernels, each launch checked against the plain version;
+    # the last captured call again at 4099 streams (a ragged last block)
+    captures = {}
+    for name, fs, cps, with_clean, absa in FRAMES_MODES:
+        n_warm = 20 if name == "16k circular" else -(-24 // cps)
+        cap = capture_mode(torch, dev, fs, cps, with_clean, absa, B_FULL,
+                           n_warm, 3 if name == "16k circular" else 2)
+        captures[name] = cap
+        for k in ("frames", "ring", "ring_pass"):
+            worst[k] = max(worst[k], cap.worst[k])
+        worst["frames"] = max(worst["frames"], frames_widened_check(
+            torch, cap.frames_args, B_FULL + 3, name))
+        log(f"  frames kernel == plain, {name}: the kernel path's steps at "
+            f"B={B_FULL} and the last one again at B={B_FULL + 3} (outputs, "
+            "pending blocks, every core leaf); ring kernels == plain")
+    main = captures["16k circular"]
     for b, head in ((B_FULL, 95), (B_FULL + 3, 90)):
         worst["frames"] = max(worst["frames"], frames_planted_check(
-            torch, dev, capture.frames_args, b, head))
-    return worst, capture
+            torch, dev, main.frames_args, b, head, "16k circular"))
+    for b in (B_FULL, B_FULL + 3):
+        worst["frames"] = max(worst["frames"], frames_planted_check(
+            torch, dev, captures["8k 3 slots clean"].frames_args, b, None,
+            "8k 3 slots clean"))
+    return worst, captures
 
 
 def phase_golden(torch, dev):
@@ -939,16 +1424,22 @@ def engine_rate(torch, run, audio_s):
 def frames_bytes(rest, b):
     """Bytes the frames kernel must move in one step: every core leaf but
     the far history read and written once, the far-history rows the step's
-    5 block slots fetch, the step's inputs and outputs."""
-    from webrtc_aecm_tpu_torch import fused_kernel
+    block slots fetch, the step's inputs and outputs; with the newest-first
+    history the whole history read and written once more (the merge, 32.8
+    KB a stream), with the circular one the pending blocks written."""
+    from webrtc_aecm_tpu_torch import fused, fused_kernel
     state = 0
     for path, shape, dtype in fused_kernel._leaf_layout(1):
         if path not in ("far_history", "far_q_domains"):
             state += shape[0] * dtype.itemsize
-    far, noisy, phase, run_rows = rest[2:6]
-    ins = sum(x.shape[0] for x in (far, noisy, phase, run_rows)) * 4
-    history = 5 * (40 + 1) * 4
-    outs = (far.shape[0] + 5 * 40 + 5) * 4
+    far, noisy, clean, phase, run_rows = rest[2:7]
+    n_slots, head = fused._n_slots_for(rest[8]), rest[12]
+    ins = sum(x.shape[0] for x in (far, noisy, clean, phase, run_rows)
+              if x is not None) * 4
+    history = n_slots * (40 + 1) * 4
+    if head is None:
+        history += 2 * 100 * (40 + 1) * 4
+    outs = (far.shape[0] + (n_slots * 41 if head is not None else 0)) * 4
     return (2 * state + ins + history + outs) * b
 
 
@@ -958,19 +1449,26 @@ def frames_ops(torch, rest):
     to need (active and inactive blocks, and per active block the
     data-dependent paths).  Returns (operations, {what: how many})."""
     from webrtc_aecm_tpu_torch import fused
-    core, mult, run_rows = rest[0], rest[6], rest[5]
+    core, run_rows, mult, n_frames = rest[0], rest[6], rest[7], rest[8]
+    has_clean, abs_approx, head = rest[9], rest[10], rest[12]
     with PlainProbe(torch, core, run_rows) as probe:
         fused.frames_step(fused.clone_state(core), *rest[1:])
     b = run_rows.shape[1]
     n = {k: int(v) for k, v in probe.count.items() if k in FRAMES_OPS}
     active = n["active block"]
+    inactive = (fused._n_slots_for(n_frames) * b - active
+                if head is not None else 0)
     act_of = lambda leaf: int(sum(  # noqa: E731
         (a & (leaf[0] != 0)).sum() for a in probe.act))
     times = dict(n, **{
         "hnl squared": active if mult == 2 else 0,
         "NLP": act_of(core.nlp_flag),
         "comfort noise": act_of(core.cng_mode),
-        "inactive slot": 5 * b - active,
+        "clean transform": active if has_clean else 0,
+        "abs_approx magnitudes": ((2 + has_clean) * active + inactive
+                                  if abs_approx else 0),
+        "inactive slot": inactive,
+        "frame": n_frames * b,
         "step": b})
     return sum(times[k] * ops for k, (ops, _) in FRAMES_OPS.items()), times
 
@@ -1012,6 +1510,16 @@ def frames_sizes(torch, capture):
     return sizes
 
 
+def log_frames_modes(modes, card):
+    for name, r in modes.items():
+        dev_ms = ("not measured" if r["device_ms"] is None
+                  else f"{r['device_ms']:.4f} ms")
+        log(f"[timing] frames_step, {name}, B={B_FULL}: {r['ms']:.4f} ms per "
+            f"launch (device {dev_ms}), bound {r['bound_ms']:.5f} ms "
+            f"({r['ops_per_stream']:.0f} operations a stream: "
+            f"{r['ops_ms']:.5f} ms; bytes {r['bytes_ms']:.5f} ms) on {card}")
+
+
 def log_frames_sizes(sizes, card):
     for b_n, r in sizes.items():
         dev_ms = ("not measured" if r["device_ms"] is None
@@ -1020,9 +1528,33 @@ def log_frames_sizes(sizes, card):
             f"(host {r['host_us']:.2f} us, device {dev_ms}) on {card}")
 
 
-def phase_timing(torch, dev, capture, batch_state):
+def frames_mode_times(torch, captures):
+    """Each frames kernel mode at 4096 streams, on its captured call: ms by
+    CUDA events, device ms by the profiler, the operations and bytes
+    bounds."""
+    from webrtc_aecm_tpu_torch import fused, fused_kernel
+    peak_ops, _, _ = int32_ops_per_s(torch)
+    out = {}
+    for name, cap in captures.items():
+        core, t, *rest = cap.frames_args
+        work = fused.clone_state(core)
+        fn = lambda: fused_kernel.frames_kernel_call(  # noqa: E731
+            work, t, *rest)
+        n_ops, _ = frames_ops(torch, [core, t] + rest)
+        bytes_ms = bound_ms(frames_bytes([core, t] + rest, B_FULL))
+        ops_ms = n_ops / peak_ops * 1e3
+        out[name] = dict(ms=cuda_ms(fn, 10),
+                         device_ms=device_ms(torch, fn, 5,
+                                             "frames_step_kernel"),
+                         bound_ms=max(bytes_ms, ops_ms), ops_ms=ops_ms,
+                         bytes_ms=bytes_ms, ops_per_stream=n_ops / B_FULL)
+    return out
+
+
+def phase_timing(torch, dev, captures, batch_state):
     from webrtc_aecm_tpu_torch import fused, fused_kernel
     from webrtc_aecm_tpu_torch.ops import ring_buffer, ring_kernels
+    capture = captures["16k circular"]
     far, near = bench_scene(B_FULL, 1.0)
     audio_s = far.shape[1] / FS
     far_t = torch.as_tensor(np.ascontiguousarray(far), device=dev)
@@ -1045,6 +1577,21 @@ def phase_timing(torch, dev, capture, batch_state):
         rates["batch-major plain"] = engine_rate(
             torch, lambda: run_batch(torch, dev, far_t, near_t, FS, 40),
             audio_s)
+    # 8 kHz, 1 s of the desync scene without its burst, both engines'
+    # kernel paths
+    f8, n8, _ = desync_scene(B_FULL, 100, 10 ** 6, 5, 64, fs=8000)
+    f8 = torch.as_tensor(f8, device=dev).int()
+    n8 = torch.as_tensor(n8, device=dev).int()
+    st8 = fused.create_fused(B_FULL, 8000, device=dev)
+    fused.run_streams_fused(st8, f8, n8, 8000, 40)             # warm-up
+    rates["fused kernel, 8 kHz"] = engine_rate(
+        torch, lambda: fused.run_streams_fused(st8, f8, n8, 8000, 40), 1.0)
+    rates["batch-major kernel, 8 kHz"] = engine_rate(
+        torch, lambda: run_batch(torch, dev, f8, n8, 8000, 40), 1.0)
+    # the real-time step: wall ms per 10 ms chunk of AecmPipeline.step
+    realtime = {(engine, fs): realtime_step_ms(
+        torch, dev, engine, fs, *((30, 50) if engine == "fused" else (10, 20)))
+        for fs in (8000, 16000) for engine in ("fused", "xla")}
 
     # per-launch times at the main paths' shapes
     per = {}
@@ -1194,7 +1741,9 @@ def phase_timing(torch, dev, capture, batch_state):
                      if not k.startswith(("Memcpy", "Memset"))) / n_prof,
         busy_ms=sum(v[1] for v in ev.values()) / 1e3 / n_prof,
         wall_ms=rates["batch-major kernel"][1] * 1e3 / (audio_s * 100))
-    return rates, per, chunk_profile, dict(floor=floor, pieces=pieces)
+    modes = frames_mode_times(torch, captures)
+    return rates, per, chunk_profile, dict(floor=floor, pieces=pieces,
+                                           realtime=realtime, modes=modes)
 
 
 def main():
@@ -1225,11 +1774,13 @@ def main():
             f"({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
-        worst, capture = phase_kernels(torch, dev)
+        worst, captures = phase_kernels(torch, dev)
         log(f"[kernels] bit-exact at B={B_FULL} "
             f"({time.perf_counter() - t:.2f} s)")
         if "--frames" in sys.argv[1:]:
-            log_frames_sizes(frames_sizes(torch, capture), card)
+            log_frames_sizes(frames_sizes(torch, captures["16k circular"]),
+                             card)
+            log_frames_modes(frames_mode_times(torch, captures), card)
             log(f"[total] {time.perf_counter() - t_all:.1f} s")
             return 0
 
@@ -1237,6 +1788,13 @@ def main():
         n_leaves = phase_golden(torch, dev)
         log(f"[golden] outputs and {n_leaves} state leaves == the JAX "
             f"package's ({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        n_env, n_leaves, n_fr = phase_golden_envelope(torch, dev)
+        log(f"[golden envelope] {n_env} entries of torch_golden_envelope.npz "
+            f"out of the kernel path ({n_fr} frames kernel launches), "
+            f"outputs and {n_leaves} state leaves == the JAX package's "
+            f"({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
         launches, worst_m, fused_ref = phase_main(torch, dev)
@@ -1263,7 +1821,13 @@ def main():
             f"launches {launches_8k} ({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
-        rates, per, prof, extra = phase_timing(torch, dev, capture,
+        launches_env, worst_env = phase_envelope(torch, dev)
+        log(f"[envelope] B={B_FULL}: AecmPipeline fused == xla at 8 and 16 "
+            f"kHz, single and clean; launches {launches_env} "
+            f"({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        rates, per, prof, extra = phase_timing(torch, dev, captures,
                                                batch_state)
         for name, (rate, wall) in rates.items():
             log(f"[timing] {name} path: {rate:.1f} streams at 1x real time "
@@ -1298,6 +1862,11 @@ def main():
         for what, (ops, how) in FRAMES_OPS.items():
             log(f"[timing]   {fr['op_times'][what]} x {ops}: {what} ({how})")
         log_frames_sizes(fr["sizes"], card)
+        log_frames_modes(extra["modes"], card)
+        for (engine, fs), ms_c in extra["realtime"].items():
+            log(f"[timing] real-time step, {engine} engine, {fs // 1000} kHz, "
+                f"B={B_FULL}: {ms_c:.3f} ms of wall per 10 ms chunk (deadline "
+                f"10 ms: {'met' if ms_c <= 10 else 'missed'}) on {card}")
         for name, us in extra["pieces"].items():
             log(f"[timing] host path, {name}: {us:.2f} us per call")
         log(f"[timing] ({time.perf_counter() - t:.2f} s)")
@@ -1307,17 +1876,23 @@ def main():
         traceback.print_exc()
         fail("a phase raised")
 
-    path_err = {"frames_step": max(worst["frames"], worst_m),
+    path_err = {"frames_step": max(worst["frames"], worst_m, worst_env),
                 "ring_multi_pass": max(worst["ring"], worst_m),
+                "ring_pass": max(worst["ring_pass"], worst_env),
                 "ring_gather": max(worst["gather"], worst_b, worst_8k),
                 "ring_write": max(worst["write"], worst_b, worst_8k)}
+    # the main paths' counts: the fused 16 kHz run (phase main), the 10 ms
+    # fused steps and tails of the envelope phase, the batch-major run
     counts = {"frames_step": launches["frames"],
               "ring_multi_pass": launches["ring"],
+              "ring_pass": launches_env["ring_pass"],
               "ring_gather": launches_b["ring_read"],
               "ring_write": launches_b["ring_write"]}
     where = {"frames_step": ("frames.cu", "webrtc_aecm_tpu/fused.py:1595"),
              "ring_multi_pass": ("ring.cu",
                                  "webrtc_aecm_tpu/ops/pallas_ring.py:306"),
+             "ring_pass": ("ring.cu",
+                           "webrtc_aecm_tpu/ops/pallas_ring.py:169"),
              "ring_gather": ("ring.cu",
                              "webrtc_aecm_tpu/ops/pallas_ring.py:56"),
              "ring_write": ("ring.cu",

@@ -3,11 +3,10 @@
 `parallel.batch.run_streams` (the port's plain path on the CPU: the ring
 wrappers take their plain versions for CPU tensors) against
 
-* the JAX package, live, at 16 kHz with a single near input on the desync
-  scene of test_torch_pipeline.py (8 streams, 40 chunks, per-(chunk,
-  stream) sound-card delays, every fourth stream held in startup while its
-  jitter-ring writes clamp): its `make_chunk_step`, the step that its
-  `run_streams` scans, jitted once and stepped chunk by chunk;
+* the JAX package at 16 kHz with a single near input on the desync scene
+  of test_torch_pipeline.py (8 streams, 40 chunks, per-(chunk, stream)
+  sound-card delays, every fourth stream held in startup while its
+  jitter-ring writes clamp), whose answer the golden file below holds;
 * the golden file tests/data/torch_golden_batch.npz (made from the JAX
   package by tools/make_torch_golden_batch.py; chip_smoke.py holds the
   card to it) in all four configurations, 8 and 16 kHz, with and without a
@@ -21,7 +20,6 @@ refusals, and the entry points' default device (the CUDA card).
 import os
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -96,26 +94,21 @@ def port_runs(golden):
 
 @pytest.fixture(scope="module")
 def jax_run(golden):
-    """The JAX package's real-time step (make_chunk_step, the body that its
-    run_streams scans), jitted once and stepped over the 16 kHz scene."""
-    far, near, ms = (jnp.asarray(x, jnp.int32)
-                     for x in _inputs(golden, "16k")[:3])
-    step = jax.jit(jb.make_chunk_step(FS))
-    st, outs = jb.create_batch(B, FS), []
-    for c in range(ms.shape[0]):
-        cols = slice(160 * c, 160 * (c + 1))
-        st, out, _ = step(st, far[:, cols], near[:, cols], ms[c])
-        outs.append(np.asarray(out))
-    return (jax.tree_util.tree_map(np.asarray, st),
-            np.concatenate(outs, axis=1))
+    """The JAX package's batch-major engine on the 16 kHz desync scene:
+    its answer in the golden file (tools/make_torch_golden_batch.py ran
+    the JAX run_streams, which scans its make_chunk_step, on this scene:
+    test_golden_16k_scene_is_the_pipeline_scene), as (final state leaves
+    {path: array}, out)."""
+    prefix = "16k.state."
+    return ({k[len(prefix):]: v for k, v in golden.items()
+             if k.startswith(prefix)}, golden["16k.out"].astype(np.int32))
 
 
 def test_run_streams_matches_jax_live(jax_run, port_runs):
     jfin, jout = jax_run
     fin, out, _ = port_runs["16k"]
     np.testing.assert_array_equal(out, jout)
-    want = dict(tree_leaves_with_path(jfin))
-    _assert_state_equal(_np_leaves(fin), want)
+    _assert_state_equal(_np_leaves(fin), jfin)
 
 
 def test_golden_16k_scene_is_the_pipeline_scene(golden):

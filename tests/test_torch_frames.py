@@ -114,8 +114,10 @@ def jax_frames_step():
 @pytest.mark.parametrize("step", COMPARED)
 def test_frames_step_matches_jax(captured, jax_frames_step, step):
     core_in, args, (core_t, out_t, pend_h, pend_q) = captured[step]
-    t, far, noisy, phase, run_rows, mult, n_frames, fpc, head = args
+    (t, far, noisy, clean, phase, run_rows, mult, n_frames, has_clean,
+     abs_approx, fpc, head) = args
     assert (mult, n_frames, fpc) == (2, 4, 2)
+    assert clean is None and not has_clean and not abs_approx
     _assert_matches_jax((core_t, out_t, pend_h, pend_q), jax_frames_step(
         core_in, far, noisy, phase, run_rows, head))
 
@@ -140,7 +142,7 @@ def test_compared_steps_cover_startup_and_live_core(captured):
     """The compared steps include a step where some streams start
     mid-step (mixed run rows) and steps with VAD firing and comfort
     noise on."""
-    mixed = any(bool((r[1][4].any(0) & ~r[1][4].all(0)).any())
+    mixed = any(bool((r[1][5].any(0) & ~r[1][5].all(0)).any())
                 for r in captured.values())
     assert mixed
     last_core = captured[COMPARED[-1]][2][0]
@@ -152,9 +154,9 @@ def test_compared_steps_cover_startup_and_live_core(captured):
 
 def test_kernel_leaf_order_matches_core_state():
     """csrc/frames.cu takes the core leaves as a pointer array in the order
-    of its `enum Leaf`; that must be the CoreState field order the wrapper
+    of the `enum Leaf` of csrc/frames.cuh; that must be the CoreState field order the wrapper
     passes (nested estimator tuples flattened, FE_/NE_ prefixed)."""
-    src = (Path(tf.__file__).parent / "csrc" / "frames.cu").read_text()
+    src = (Path(tf.__file__).parent / "csrc" / "frames.cuh").read_text()
     body = re.search(r"enum Leaf \{(.*?)N_LEAVES", src, re.S).group(1)
     names = [n.strip() for n in body.split(",") if n.strip()]
     core = tf.create_fused(2, FS, device="cpu").core
@@ -231,11 +233,11 @@ PLANTED = ("two_equal_minima", "no_candidate_under_the_limit",
 def test_frames_step_planted_case_matches_jax(captured, jax_frames_step,
                                               name):
     core_in, args, _ = captured[COMPARED[-1]]
-    t, far, noisy, phase, run_rows, mult, n_frames, fpc, _ = args
+    t, far, noisy, _, phase, run_rows, mult, n_frames, _, _, fpc, _ = args
     core, far, noisy, phase, run_rows, head = _plant(
         name, core_in, far, noisy, phase, run_rows)
-    res = tf.frames_step(tf.clone_state(core), t, far, noisy, phase,
-                         run_rows, mult, n_frames, fpc, head)
+    res = tf.frames_step(tf.clone_state(core), t, far, noisy, None, phase,
+                         run_rows, mult, n_frames, False, False, fpc, head)
     _assert_matches_jax(res, jax_frames_step(core, far, noisy, phase,
                                              run_rows, head))
     new = res[0]

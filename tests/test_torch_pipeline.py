@@ -1,21 +1,24 @@
 """The PyTorch port's serving slice == the JAX package's (tolerance 0).
 
 The whole fused 16 kHz path: `create_fused`, and `run_streams_fused` (the
-port's plain path on the CPU against the JAX package's pure path) on
-bench.py's scene and on the desync scene -- 8 streams, 40 chunks of 10 ms, per-(chunk, stream)
-sound-card delays with a burst at chunk 24, and every fourth stream held
-in startup until its ring writes clamp -- for the output samples and
-every leaf of the final state.  The committed golden file (made from the
-JAX package by tools/make_torch_golden.py; chip_smoke.py holds the GPU to
-it) must hold the same scene and the port's answer.  State moves between
-the packages only through webrtc_aecm_tpu_torch.convert.
+port's plain path on the CPU) against the JAX package's pure path on
+bench.py's scene and on the desync scene -- 8 streams, 40 chunks of 10 ms,
+per-(chunk, stream) sound-card delays with a burst at chunk 24, and every
+fourth stream held in startup until its ring writes clamp -- for the output
+samples and every leaf of the final state.  The JAX package's answers come
+from the committed golden files, made from it by tools/make_torch_golden.py
+(the desync scene, torch_golden_16k.npz) and
+tools/make_torch_golden_envelope.py (bench.py's scene, under
+`rsf.bench16k` in torch_golden_envelope.npz); chip_smoke.py holds the GPU
+to them.  State moves between the packages only through
+webrtc_aecm_tpu_torch.convert.
 """
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,8 @@ torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "data", "torch_golden_16k.npz")
+GOLDEN_ENVELOPE = os.path.join(REPO, "tests", "data",
+                               "torch_golden_envelope.npz")
 FS, B, N_CHUNKS = 16000, 8, 40
 
 
@@ -71,23 +76,26 @@ def _np_leaves(state):
     return tree_leaves_with_path(convert.fused_state_to_numpy(state))
 
 
+def _golden_answer(path, prefix):
+    """(final state as a tree of the JAX package's numpy leaves, out) of a
+    golden file's run: `prefix` + "out" and `prefix` + "state.<path>"."""
+    with np.load(path) as g:
+        def build(tree, at):
+            if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+                return SimpleNamespace(**{
+                    f: build(getattr(tree, f), f"{at}{f}.")
+                    for f in tree._fields})
+            return g[f"{prefix}state.{at[:-1]}"]
+        state = build(tf.create_fused(1, FS, device="cpu"), "")
+        return state, g[prefix + "out"].astype(np.int32)
+
+
 @pytest.fixture(scope="module")
-def jax_runner():
-    """The JAX package's pure fused path, compiled once for both scenes
-    (ms is an argument, not a constant of the trace)."""
-    run = jax.jit(lambda s, f, d, m: jf.run_streams_fused(
-        s, f, d, FS, m, use_kernel=False))
-
-    def call(far, near, ms):
-        fin, out = run(jf.create_fused(B, FS), jnp.asarray(far, jnp.int32),
-                       jnp.asarray(near, jnp.int32), jnp.asarray(ms))
-        return jax.tree_util.tree_map(np.asarray, fin), np.asarray(out)
-    return call
-
-
-@pytest.fixture(scope="module")
-def jax_run(jax_runner):
-    return jax_runner(*_scene())
+def jax_run():
+    """The JAX package's pure fused path on the desync scene: its answer
+    in the golden file (tools/make_torch_golden.py ran it on this scene:
+    test_golden_file_is_this_scene_and_the_ports_answer)."""
+    return _golden_answer(GOLDEN, "")
 
 
 @pytest.fixture(scope="module")
@@ -161,10 +169,11 @@ def test_run_streams_fused_state_matches_jax(jax_run, port_run):
         np.testing.assert_array_equal(a, b, err_msg=f"state leaf {path}")
 
 
-def test_bench_scene_matches_jax(jax_runner):
-    """bench.py's scene (every stream alike, a fixed sound-card delay)."""
+def test_bench_scene_matches_jax():
+    """bench.py's scene (every stream alike, a fixed sound-card delay);
+    the JAX package's answer from the envelope golden file."""
     far, near, ms = _bench_scene()
-    jfin, jout = jax_runner(far, near, ms)
+    jfin, jout = _golden_answer(GOLDEN_ENVELOPE, "rsf.bench16k.")
     fin, out = tf.run_streams_fused(tf.create_fused(B, FS, device="cpu"),
                                     far, near, FS, 40)
     np.testing.assert_array_equal(out.numpy(), jout)
@@ -201,7 +210,8 @@ def test_import_leaves_jax_out():
             "webrtc_aecm_tpu_torch.fused_kernel, webrtc_aecm_tpu_torch.convert,"
             " webrtc_aecm_tpu_torch.ops.ring_kernels, "
             "webrtc_aecm_tpu_torch.ops.fft, "
-            "webrtc_aecm_tpu_torch.parallel.batch; "
+            "webrtc_aecm_tpu_torch.parallel.batch, "
+            "webrtc_aecm_tpu_torch.api, webrtc_aecm_tpu_torch.models; "
             "assert 'jax' not in sys.modules, 'jax imported'; print('ok')")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
@@ -209,19 +219,29 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("kwargs,what", [
-    (dict(sample_rate=8000), "8 kHz"),
-    (dict(clean=np.zeros((2, 640), np.int16)), "dual-input"),
-    (dict(chunks_per_step=1), "chunks_per_step=1"),
-    (dict(n_samples=480), "tail"),
+    (dict(sample_rate=8000, chunks_per_step=5), "8 kHz"),
+    (dict(clean=np.zeros((2, 640), np.int16), chunks_per_step=4),
+     "dual-input"),
+    (dict(chunks_per_step=1, lookahead=True), "chunks_per_step=1"),
+    (dict(n_samples=800, chunks_per_step=3), "tail"),
 ])
 def test_out_of_scope_raises(kwargs, what):
-    """The parts of the JAX envelope not ported yet say so."""
+    """What the port still refuses says so, in each configuration that was
+    refused before it was ported: on the kernel path a step of more than 4
+    frames (5 block slots), and lookahead capacity > 1."""
+    kwargs = dict(kwargs)
     n = kwargs.pop("n_samples", 640)
     fs = kwargs.pop("sample_rate", FS)
+    st = tf.create_fused(2, fs, device="cpu")
+    match = "5 block slots"
+    if kwargs.pop("lookahead", False):
+        dn = st.core.de_near
+        st = st._replace(core=st.core._replace(de_near=dn._replace(
+            binary_history=torch.zeros((4, 2), dtype=torch.int64))))
+        match = "lookahead"
     x = np.zeros((2, n), np.int16)
-    with pytest.raises(NotImplementedError, match=what):
-        tf.run_streams_fused(tf.create_fused(2, fs, device="cpu"), x, x, fs,
-                             **kwargs)
+    with pytest.raises(NotImplementedError, match=match):
+        tf.run_streams_fused(st, x, x, fs, **kwargs)
 
 
 def test_lookahead_capacity_above_one_raises():

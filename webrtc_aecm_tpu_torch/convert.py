@@ -14,6 +14,13 @@ unless the caller asks for another); `*_to_numpy` goes back, returning the
 port's NamedTuples with numpy leaves in the JAX dtypes.  Field order is the
 same in both packages, so the leaf lists line up one to one.
 
+`save_checkpoint` / `load_checkpoint` read and write the JAX package's
+checkpoint format (`AecmPipeline.save` there): an .npz with
+`__meta__ = [2, n_streams, sample_rate]` and one array per leaf of the
+batch-leading `control.AecmState` under "s." + its dotted field path, in
+the JAX package's dtypes, so a checkpoint crosses between the packages in
+both directions.
+
 The dtype differences: uint32 leaves (the CNG seed and the two binary
 histories of the delay estimator) are int64 carriers in the port, and the
 batch-major far history, uint16 in the JAX package, is int32.  The circular
@@ -99,3 +106,55 @@ def aecm_state_to_numpy(state: control.AecmState) -> control.AecmState:
     package's dtypes (uint32 carriers and the int32 far history become
     uint32 and uint16)."""
     return _to_numpy(state, _AECM_TYPES, U16_LEAVES)
+
+
+CHECKPOINT_VERSION = 2
+
+
+def checkpoint_key(path: str) -> str:
+    """The JAX package's checkpoint name of the leaf at dotted field path
+    `path`: "s" + jax.tree_util.keystr of its key path, which is "s." +
+    the dotted path for the NamedTuple fields of AecmState."""
+    return "s." + path
+
+
+def save_checkpoint(path, state: control.AecmState, sample_rate: int):
+    """Write `state` (batch-leading, leaves (n_streams, ...)) as the JAX
+    package's checkpoint file."""
+    from ._tree import tree_leaves_with_path
+    n = state.ec_startup.shape[0]
+    arrays = {checkpoint_key(p): x for p, x in tree_leaves_with_path(
+        aecm_state_to_numpy(state))}
+    np.savez_compressed(path, __meta__=np.array(
+        [CHECKPOINT_VERSION, n, sample_rate]), **arrays)
+
+
+def load_checkpoint(path, like: control.AecmState, sample_rate: int,
+                    device=None) -> control.AecmState:
+    """Read a checkpoint written by `save_checkpoint` or by the JAX
+    package's AecmPipeline.save into a state of `like`'s structure and
+    shapes, on `device`; raises ValueError on another format, stream count,
+    rate or layout."""
+    with np.load(path) as data:
+        meta = data["__meta__"]
+        if len(meta) != 3 or int(meta[0]) != CHECKPOINT_VERSION:
+            raise ValueError(
+                "unrecognized checkpoint format (expected version-2 named "
+                "leaves)")
+        n, rate = int(meta[1]), int(meta[2])
+        want = like.ec_startup.shape[0]
+        if (n, rate) != (want, sample_rate):
+            raise ValueError(f"checkpoint is for {n} streams @ {rate} Hz, "
+                             f"the state is {want} @ {sample_rate}")
+        from ._tree import tree_leaves_with_path
+        missing = [checkpoint_key(p) for p, _ in tree_leaves_with_path(like)
+                   if checkpoint_key(p) not in data.files]
+        if missing:
+            raise ValueError("checkpoint is missing state leaves (older "
+                             f"state layout?): {missing[:5]}")
+        tree = _build("", like, lambda p, x: data[checkpoint_key(p)],
+                      _AECM_TYPES)
+        state = aecm_state_from_numpy(tree, device)
+    from ._tree import tree_map
+    return tree_map(lambda x, ref: x.to(ref.dtype).reshape(ref.shape),
+                    state, like)

@@ -635,6 +635,19 @@ def time_to_frequency_domain(time_signal, abs_approx: bool = False):
     z = torch.zeros_like(im[..., :1])
     im = torch.cat([z, spl.to_w16(-im[..., 1:D.PART_LEN]), z], dim=-1)
 
+    abs_re, mag = bin_magnitudes(re, im, abs_approx)
+    mag = torch.cat([abs_re[..., :1], mag[..., 1:D.PART_LEN],
+                     abs_re[..., D.PART_LEN:]], dim=-1)
+    return scaling, (re, im), mag, _sum_u32(mag)
+
+
+def bin_magnitudes(re, im, abs_approx: bool):
+    """The interior bins' magnitudes of TimeToFrequencyDomain
+    (aecm_core_c.cc:316-365), elementwise in any layout: |im| where re is
+    0, |re| where im is 0, else the rounded-down root of the saturated
+    power, or with abs_approx the alpha-max-plus-beta-min estimate
+    (AECM_WITH_ABS_APPROX).  Returns (|re|, magnitudes int32); the caller
+    takes |re| for bins 0 and 64."""
     abs_re, abs_im = re.abs(), im.abs()
     if abs_approx:
         max_v = torch.maximum(abs_re, abs_im)
@@ -642,17 +655,14 @@ def time_to_frequency_domain(time_signal, abs_approx: bool = False):
         c4, c2 = (max_v >> 2) > min_v, (max_v >> 1) > min_v
         alpha = torch.where(c4, 32584, torch.where(c2, 30879, 26951))
         beta = torch.where(c4, 4249, torch.where(c2, 11072, 18927))
-        mag_interior = ((spl.to_w16((max_v * alpha) >> 15) & 0xFFFF)
-                        + (spl.to_w16((min_v * beta) >> 15) & 0xFFFF)
-                        ) & 0xFFFF   # the uint16_t sum wraps
+        interior = ((spl.to_w16((max_v * alpha) >> 15) & 0xFFFF)
+                    + (spl.to_w16((min_v * beta) >> 15) & 0xFFFF)
+                    ) & 0xFFFF   # the uint16_t sum wraps
     else:
-        mag_interior = spl.sqrt_floor(
+        interior = spl.sqrt_floor(
             spl.add_sat_w32(abs_re * abs_re, abs_im * abs_im))
-    mag = torch.where(re == 0, abs_im,
-                      torch.where(im == 0, abs_re, mag_interior)).to(I32)
-    mag = torch.cat([abs_re[..., :1], mag[..., 1:D.PART_LEN],
-                     abs_re[..., D.PART_LEN:]], dim=-1)
-    return scaling, (re, im), mag, _sum_u32(mag)
+    return abs_re, torch.where(re == 0, abs_im,
+                               torch.where(im == 0, abs_re, interior)).to(I32)
 
 
 def inverse_fft_and_window(state: CoreState, efw_re, efw_im,

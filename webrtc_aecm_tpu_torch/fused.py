@@ -13,9 +13,13 @@ Two execution paths share one semantics:
     (fused_kernel.py, csrc/frames.cu), each held bit-exact against the
     plain path on the card (chip_smoke.py).
 
-Scope: the circular far-history schedule (`make_fused_chunk_step(
-circular_far=True)` in the JAX package) at 16 kHz, 2 chunks per step, a
-single near input.  The rest of the JAX envelope raises NotImplementedError.
+Scope: the JAX package's fused envelope at 8 and 16 kHz: any number of
+chunks per step (the frames kernel takes steps of up to 4 frames, 5 block
+slots; wider ones run on the plain path), the circular far history where a
+step is whole blocks and the newest-first one elsewhere (the 10 ms
+real-time step), a single or a clean near input, `abs_approx`, and a tail of
+chunks as one final smaller step.  Delay-estimator lookahead capacity > 1
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -463,10 +467,12 @@ def _push_far_pending(ctx, far_spectrum, far_q):
 
 
 def _aligned_farend_deferred(ctx, delay):
-    """AlignedFarend against the deferred circular view: delay d in slot s
-    (s pending predecessors + this slot's block) is pending[s - d] for
-    d <= s, else the old block written d - s - 1 blocks before the newest,
-    which lives at row-group (head0 - 1 - (d - s - 1)) mod 100."""
+    """AlignedFarend against the deferred view: delay d in slot s (s
+    pending predecessors + this slot's block) is pending[s - d] for d <= s,
+    else the old block written d - s - 1 blocks before the newest.  In the
+    newest-first history (ctx["head0"] None) that block is row-group
+    d - s - 1; in the circular one it is (head0 - 1 - (d - s - 1)) mod
+    100."""
     hist_p, q_old = ctx["hist"], ctx["q"]
     pending, pending_q = ctx["pending"], ctx["pending_q"]
     head0 = ctx["head0"]
@@ -475,8 +481,11 @@ def _aligned_farend_deferred(ctx, delay):
     hist = hist_p.view(D.MAX_DELAY, FAR_HIST_ROWS, b)
     idx_old = delay - (s + 1)
     in_old = (delay < D.MAX_DELAY) & (idx_old >= 0)
-    tgt = head0 + (D.MAX_DELAY - 1) - idx_old
-    tgt = torch.where(tgt >= D.MAX_DELAY, tgt - D.MAX_DELAY, tgt)
+    if head0 is None:
+        tgt = idx_old
+    else:
+        tgt = head0 + (D.MAX_DELAY - 1) - idx_old
+        tgt = torch.where(tgt >= D.MAX_DELAY, tgt - D.MAX_DELAY, tgt)
     tgt = tgt.clamp(0, D.MAX_DELAY - 1).long()
     packed = torch.gather(hist, 0, tgt.view(1, 1, b).expand(
         1, FAR_HIST_ROWS, b))[0]
@@ -487,6 +496,20 @@ def _aligned_farend_deferred(ctx, delay):
         packed = torch.where(hit, pending[s - j], packed)
         far_q = torch.where(hit, pending_q[s - j], far_q)
     return _unpack_far_block(packed)[:D.PART_LEN1], far_q.to(I32)
+
+
+def _far_merge_deferred(hist, pending, n_act, rows: int):
+    """Merge the pending blocks into the (100 * rows, B) newest-first
+    history: lanes with n_act = m get [pending[m-1] .. pending[0],
+    old[:100-m]] (the pending blocks of inactive slots are never taken)."""
+    S = len(pending)
+    total = hist.shape[0]
+    padded = torch.cat(list(reversed(pending)) + [hist], dim=0)
+    out = padded[S * rows:S * rows + total]
+    for m in range(1, S + 1):
+        out = torch.where(n_act == m,
+                          padded[(S - m) * rows:(S - m) * rows + total], out)
+    return out
 
 
 def _calc_energies_f(core, far_spectrum, far_q, near_ener):
@@ -726,8 +749,10 @@ def _calc_suppression_gain_f(core):
     return core, new_sup
 
 
-def _time_to_frequency_domain_f(time_signal, t: Tables):
-    """core.time_to_frequency_domain, lane-major ((128, B) in)."""
+def _time_to_frequency_domain_f(time_signal, t: Tables,
+                                abs_approx: bool = False):
+    """core.time_to_frequency_domain, lane-major ((128, B) in); abs_approx
+    takes the alpha-max-plus-beta-min magnitude (AECM_WITH_ABS_APPROX)."""
     max_abs = _max_abs_w16_0(time_signal)
     scaling = spl.norm_w16(max_abs)
     scaled = spl.to_w16(spl.shl_i32(time_signal, scaling))
@@ -736,17 +761,15 @@ def _time_to_frequency_domain_f(time_signal, t: Tables):
     z = _zeros_row(im)
     im = torch.cat([z, spl.to_w16(-im[1:D.PART_LEN]), z], dim=0)
 
-    abs_re, abs_im = re.abs(), im.abs()
-    sq = spl.add_sat_w32(abs_re * abs_re, abs_im * abs_im)
-    mag = torch.where(re == 0, abs_im,
-                      torch.where(im == 0, abs_re, spl.sqrt_floor(sq)))
+    abs_re, mag = core_mod.bin_magnitudes(re, im, abs_approx)
     mag = torch.cat([_row(abs_re, 0), mag[1:D.PART_LEN],
                      _row(abs_re, D.PART_LEN)], dim=0)
     return scaling, (re, im), mag, _sum0_u32(mag)
 
 
-def _inverse_fft_and_window_f(core, efw_re, efw_im, t: Tables):
-    """core.inverse_fft_and_window, lane-major (single input)."""
+def _inverse_fft_and_window_f(core, efw_re, efw_im, has_clean: bool,
+                              t: Tables):
+    """core.inverse_fft_and_window, lane-major."""
     ifft_out, out_cfft = _real_inverse_fft(efw_re, spl.to_w16(-efw_im), t)
     shift = out_cfft - core.dfa_clean_q
     P = D.PART_LEN
@@ -757,6 +780,9 @@ def _inverse_fft_and_window_f(core, efw_re, efw_im, t: Tables):
     x_buf = torch.cat([core.x_buf[P:], core.x_buf[P:]], dim=0)
     d_noisy = torch.cat([core.d_buf_noisy[P:], core.d_buf_noisy[P:]], dim=0)
     core = core._replace(x_buf=x_buf, d_buf_noisy=d_noisy, out_buf=out_buf)
+    if has_clean:
+        core = core._replace(d_buf_clean=torch.cat(
+            [core.d_buf_clean[P:], core.d_buf_clean[P:]], dim=0))
     return core, output
 
 
@@ -833,8 +859,9 @@ def _calc_step_size_f(core):
     return torch.where(core.current_vad_value == 0, 0, mu).to(I32)
 
 
-def _process_block_f(core, t: Tables, farend, nearend_noisy, phase_v,
-                     mult: int, far_ctx):
+def _process_block_f(core, t: Tables, farend, nearend_noisy, nearend_clean,
+                     phase_v, mult: int, has_clean: bool, abs_approx: bool,
+                     far_ctx):
     """core.process_block, lane-major; blocks are (64, B).  The CNG seed
     passes through (advanced before the step), and the far-history update
     is deferred through far_ctx."""
@@ -848,15 +875,27 @@ def _process_block_f(core, t: Tables, farend, nearend_noisy, phase_v,
         startup_state=startup_state,
         x_buf=torch.cat([core.x_buf[:P], farend], dim=0),
         d_buf_noisy=torch.cat([core.d_buf_noisy[:P], nearend_noisy], dim=0))
+    if has_clean:
+        core = core._replace(d_buf_clean=torch.cat(
+            [core.d_buf_clean[:P], nearend_clean], dim=0))
 
-    far_q, _, xfa, _ = _time_to_frequency_domain_f(core.x_buf, t)
+    far_q, _, xfa, _ = _time_to_frequency_domain_f(core.x_buf, t, abs_approx)
     zeros_d_noisy, dfw, dfa_noisy, dfa_noisy_sum = (
-        _time_to_frequency_domain_f(core.d_buf_noisy, t))
+        _time_to_frequency_domain_f(core.d_buf_noisy, t, abs_approx))
     core = core._replace(dfa_noisy_q_old=core.dfa_noisy_q,
                          dfa_noisy_q=zeros_d_noisy)
-    core = core._replace(dfa_clean_q_old=core.dfa_noisy_q_old,
-                         dfa_clean_q=core.dfa_noisy_q)
-    ptr_dfa_clean = dfa_noisy
+    if has_clean:
+        # the clean Q history is its own (dfa_clean_q_old takes the old
+        # dfa_clean_q, not dfa_noisy_q_old), and the Wiener stage filters
+        # the clean spectrum
+        zeros_d_clean, dfw, ptr_dfa_clean, _ = _time_to_frequency_domain_f(
+            core.d_buf_clean, t, abs_approx)
+        core = core._replace(dfa_clean_q_old=core.dfa_clean_q,
+                             dfa_clean_q=zeros_d_clean)
+    else:
+        core = core._replace(dfa_clean_q_old=core.dfa_noisy_q_old,
+                             dfa_clean_q=core.dfa_noisy_q)
+        ptr_dfa_clean = dfa_noisy
 
     _push_far_pending(far_ctx, xfa, far_q)
     core = core._replace(
@@ -964,7 +1003,7 @@ def _process_block_f(core, t: Tables, farend, nearend_noisy, phase_v,
     efw_re = torch.where(use_cng, cng_re, efw_re)
     efw_im = torch.where(use_cng, cng_im, efw_im)
 
-    return _inverse_fft_and_window_f(core, efw_re, efw_im, t)
+    return _inverse_fft_and_window_f(core, efw_re, efw_im, has_clean, t)
 
 
 def _place_at_fill(carry, payload, fill):
@@ -1035,21 +1074,24 @@ def _emit_frame_f(core, produced, two_blocks, run_mask):
     return core, out
 
 
-def frames_step(core, t: Tables, far_frames, noisy_frames, phase_all,
-                run_rows, mult: int, n_frames: int, frames_per_chunk: int,
-                far_head: int):
+def frames_step(core, t: Tables, far_frames, noisy_frames, clean_frames,
+                phase_all, run_rows, mult: int, n_frames: int,
+                has_clean: bool, abs_approx: bool = False,
+                frames_per_chunk: int = 1, far_head: Optional[int] = None):
     """The full n_frames-frame core path, lane-major, as the slot-major
-    block schedule of the JAX package's `frames_step` in circular
-    far-history mode: block s is always samples [64s, 64s + 64) of the
-    stream carry + payload, and (fill0 + 80k) // 64 blocks are live.
+    block schedule of the JAX package's `frames_step`: block s is always
+    samples [64s, 64s + 64) of the stream carry + payload, and
+    (fill0 + 80k) // 64 of the _n_slots_for(n_frames) slots are live.
 
-    far/noisy_frames: (n_frames*80, B) int32; phase_all: (n_slots*64, B)
-    packed CNG phase rows; run_rows: (n_frames, B) bool, non-decreasing
-    along frames and constant within a chunk; far_head: the circular
-    history head (an int, the same for every stream).  Returns (core, out
-    (n_frames*80, B), pend_hist (n_slots*40, B), pend_q (n_slots, B)); the
-    history leaves pass through untouched, the caller appends the pending
-    blocks.  This is the plain version of the frames kernel."""
+    far/noisy/clean_frames: (n_frames*80, B) int32 (clean_frames None
+    unless has_clean); phase_all: (n_slots*64, B) packed CNG phase rows;
+    run_rows: (n_frames, B) bool, non-decreasing along frames and constant
+    within a chunk.  far_head None: the far history is newest-first and the
+    step's new blocks are merged into it, returns (core, out (n_frames*80,
+    B)).  far_head an int (the circular history's head, the same for every
+    stream): the history leaves pass through untouched and the step returns
+    (core, out, pend_hist (n_slots*40, B), pend_q (n_slots, B)) for the
+    caller to append.  This is the plain version of the frames kernel."""
     F, P = D.FRAME_LEN, D.PART_LEN
     n = n_frames
     n_slots = _n_slots_for(n)
@@ -1069,6 +1111,8 @@ def frames_step(core, t: Tables, far_frames, noisy_frames, phase_all,
 
     full_far = stream(core.in_carry_far, far_frames)
     full_noi = stream(core.in_carry_noisy, noisy_frames)
+    full_cl = (stream(core.in_carry_clean, clean_frames) if has_clean
+               else None)
 
     total = fill0 + F * k
     far_ctx = {"hist": core.far_history, "q": core.far_q_domains,
@@ -1076,13 +1120,24 @@ def frames_step(core, t: Tables, far_frames, noisy_frames, phase_all,
     outs = []
     for s in range(n_slots):
         act = total >= P * (s + 1)
+        rows = slice(s * P, (s + 1) * P)
         new_core, out_b = _process_block_f(
-            core, t, full_far[s * P:(s + 1) * P], full_noi[s * P:(s + 1) * P],
-            phase_all[s * P:(s + 1) * P], mult, far_ctx)
+            core, t, full_far[rows], full_noi[rows],
+            full_cl[rows] if has_clean else None, phase_all[rows], mult,
+            has_clean, abs_approx, far_ctx)
         core = _where_tree(act, new_core, core)
         outs.append(torch.where(act, out_b, 0))
-    pend_hist = torch.cat(far_ctx["pending"], dim=0)
-    pend_q = torch.cat(far_ctx["pending_q"], dim=0)
+
+    if far_head is None:
+        n_act = total >> 6
+        core = core._replace(
+            far_history=_far_merge_deferred(
+                core.far_history, far_ctx["pending"], n_act, FAR_HIST_ROWS),
+            far_q_domains=_far_merge_deferred(
+                core.far_q_domains, far_ctx["pending_q"], n_act, 1))
+    else:
+        pend_hist = torch.cat(far_ctx["pending"], dim=0)
+        pend_q = torch.cat(far_ctx["pending_q"], dim=0)
 
     # in-carry update: rows [64, 128) of the last active frame's window
     b_last_p1 = ((fill0 + F * (k - 1).clamp(min=0)) >> 6) + 1
@@ -1097,6 +1152,9 @@ def frames_step(core, t: Tables, far_frames, noisy_frames, phase_all,
         in_carry_far=carry_from(full_far, core.in_carry_far),
         in_carry_noisy=carry_from(full_noi, core.in_carry_noisy),
         frame_fill=(fill0 + 16 * k) & 63)
+    if has_clean:
+        core = core._replace(
+            in_carry_clean=carry_from(full_cl, core.in_carry_clean))
 
     # per-frame output attribution + the 80-sample emit, in frame order
     out_frames = []
@@ -1110,7 +1168,10 @@ def frames_step(core, t: Tables, far_frames, noisy_frames, phase_all,
         core, out_f = _emit_frame_f(core, torch.cat([first, second], 0),
                                     two_f, run_f)
         out_frames.append(out_f)
-    return core, torch.cat(out_frames, dim=0), pend_hist, pend_q
+    out = torch.cat(out_frames, dim=0)
+    if far_head is None:
+        return core, out
+    return core, out, pend_hist, pend_q
 
 
 # ---------------------------------------------------------------------------
@@ -1230,35 +1291,51 @@ def _from_circular_far(core_f, head: int):
                            far_q_domains=q.contiguous())
 
 
-def _check_envelope(sample_rate: int, chunks_per_step: int, state=None):
-    """The port covers 16 kHz, 2 chunks per step, a single near input and
-    lookahead capacity 1; the rest of the JAX envelope is not ported yet."""
-    if sample_rate != 16000:
+MAX_KERNEL_FRAMES = 4
+# The frames kernel's widest step: 4 frames = 5 block slots (16 kHz x 2
+# chunks, 8 kHz x 4).  Wider steps run on the plain path only.
+
+
+def _check_envelope(sample_rate: int, chunks_per_step: int,
+                    use_kernel: bool, state=None):
+    """What the port still refuses (ROADMAP.md Queue 1 item 9's rest):
+    delay-estimator lookahead capacity > 1, and on the kernel path a step
+    of more than 4 frames (5 block slots)."""
+    if sample_rate not in (8000, 16000):
+        raise ValueError("sample_rate must be 8000 or 16000")
+    n_frames = min(160, sample_rate // 100) // D.FRAME_LEN * chunks_per_step
+    if use_kernel and n_frames > MAX_KERNEL_FRAMES:
         raise NotImplementedError(
-            "8 kHz serving (4 chunks per step) is not ported yet")
-    if chunks_per_step != 2:
-        raise NotImplementedError(
-            "only chunks_per_step=2 (the circular far-history schedule) is "
-            "ported; chunks_per_step=1 without circular history is not")
+            f"a step of {chunks_per_step} chunks at {sample_rate} Hz is "
+            f"{n_frames} frames ({_n_slots_for(n_frames)} block slots); the "
+            f"frames kernel runs at most {MAX_KERNEL_FRAMES} frames (5 block "
+            "slots): more is ROADMAP.md Queue 1 item 9 (use_kernel=False "
+            "runs the plain path)")
     if state is not None and state.core.de_near.binary_history.shape[0] != 1:
         raise NotImplementedError(
-            "delay-estimator lookahead capacity > 1 is not ported yet")
+            "delay-estimator lookahead capacity > 1 is not ported yet "
+            "(ROADMAP.md Queue 1 item 10)")
 
 
 class FusedAecm(nn.Module):
-    """One serving step of `chunks_per_step` x 10 ms on a FusedState (the
-    JAX package's make_fused_chunk_step with circular_far=True and
-    lane-major near input).  The constant tables are buffers.
+    """One serving step of `chunks_per_step` x 10 ms on a FusedState: the
+    JAX package's make_fused_chunk_step.  The constant tables are buffers.
 
-    forward(state, head, far, noisy, ms) -> (state, head', out, warn):
-    far (B, cps*160) batch-leading int32, noisy (cps*160, B) lane-major,
-    ms (cps, B); out (cps*160, B) lane-major, warn (cps, B).  `head` is
-    the circular far-history head (an int).
+    forward(state, far, noisy[, clean], ms) -> (state, out, warn), or with
+    circular_far forward(state, head, far, noisy[, clean], ms) -> (state,
+    head', out, warn) where head is the circular far history's head (an
+    int).  far is (B, cps*chunk) batch-leading; noisy / clean / out are the
+    same shape, or (cps*chunk, B) lane-major when lane_major_io; ms a
+    scalar, (B,) or (cps, B); warn (B,) at cps = 1, else (cps, B).
+    circular_far needs an exact-block schedule (cps*chunk a multiple of
+    64, the block count dividing 100); left None it is taken wherever the
+    schedule is exact-block (the serving defaults, 2 chunks at 16 kHz and 4
+    at 8 kHz, are).
 
-    The step consumes its input state: the history append writes into
-    core.far_history in place, and on the kernel path the ring kernel and
-    the frames kernel update the ring and every core leaf in place (as
-    input_output_aliases does in the JAX kernels).  Use the returned state.
+    The step consumes its input state: on the kernel path the ring kernel
+    and the frames kernel update the ring and every core leaf in place (as
+    input_output_aliases does in the JAX kernels), and the circular append
+    writes into core.far_history.  Use the returned state.
 
     use_kernel=True runs the CUDA kernels for CUDA tensors and the plain
     versions for CPU tensors (the wrappers dispatch on the device);
@@ -1266,14 +1343,20 @@ class FusedAecm(nn.Module):
 
     def __init__(self, sample_rate: int = 16000,
                  chunks_per_step: Optional[int] = None,
-                 use_kernel: bool = True, device=None):
+                 use_kernel: bool = True, device=None,
+                 has_clean: bool = False, abs_approx: bool = False,
+                 lane_major_io: bool = True,
+                 circular_far: Optional[bool] = None):
         super().__init__()
         cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
-        _check_envelope(sample_rate, cps)
+        _check_envelope(sample_rate, cps, use_kernel)
         device = _device.resolve(device)
         self.sample_rate = sample_rate
         self.cps = cps
         self.use_kernel = use_kernel
+        self.has_clean = has_clean
+        self.abs_approx = abs_approx
+        self.lane_major_io = lane_major_io
         self.mult = sample_rate // 8000
         self.out_len = min(160, sample_rate // 100)
         self.fpc = self.out_len // D.FRAME_LEN
@@ -1281,6 +1364,14 @@ class FusedAecm(nn.Module):
         self.est_idx = 0 if sample_rate == 8000 else 1
         self.n_frames = self.fpc * cps
         self.s_blocks = (self.n_frames * D.FRAME_LEN) // D.PART_LEN
+        if circular_far is None:
+            circular_far = _exact_block(cps * self.out_len)
+        self.circular_far = circular_far
+        if circular_far and not _exact_block(cps * self.out_len):
+            raise ValueError(
+                f"circular_far needs an exact-block schedule: {cps} chunks "
+                f"of {self.out_len} samples are not a whole number of "
+                f"{D.PART_LEN}-sample blocks dividing {D.MAX_DELAY}")
         for name, v in make_tables(device, _n_slots_for(self.n_frames)
                                    )._asdict().items():
             self.register_buffer(name, v, persistent=False)
@@ -1366,15 +1457,40 @@ class FusedAecm(nn.Module):
         return (ctrl, (write_pos0, n_write, read_pos0), haves, run,
                 in_startup, warn)
 
-    def forward(self, state: FusedState, head: int, far, noisy, ms):
-        from . import fused_kernel
+    def _ring_pass(self, ptrs, data, far):
+        """The step's jitter-ring data pass: one ring_pass launch at one
+        chunk per step, one ring_multi_pass launch at more."""
         from .ops import ring_kernels
+        wpos, n_write, rpos = (torch.stack([p[i] for p in ptrs])
+                               for i in range(3))
+        if not self.use_kernel:
+            return _ring_write_gather_multi(data, wpos, far, n_write, rpos,
+                                            self.out_len)
+        if self.cps == 1:
+            return ring_kernels.ring_pass(data, wpos[0], far, n_write[0],
+                                          rpos[0], self.out_len)
+        return ring_kernels.ring_multi_pass(data, wpos, far, n_write, rpos,
+                                            self.out_len)
+
+    def forward(self, state: FusedState, *args):
+        from . import fused_kernel
+        head = args[0] if self.circular_far else None
+        args = args[1:] if self.circular_far else args
+        if len(args) != 3 + self.has_clean:
+            raise TypeError(
+                "expected (state, " + ("head, " if self.circular_far else "")
+                + "far, noisy, " + ("clean, " if self.has_clean else "")
+                + "ms)")
+        far, noisy = args[0], args[1]
+        clean = args[2] if self.has_clean else None
+        ms = args[-1]
         t = self.tables
         cps, out_len, fpc = self.cps, self.out_len, self.fpc
         ctrl, core_f = state.ctrl, state.core
+        _check_envelope(self.sample_rate, cps, self.use_kernel, state)
         b = ctrl.ec_startup.shape[0]
-        ms_all = torch.as_tensor(ms, dtype=I32, device=far.device
-                                 ).expand(cps, b)
+        dev = ctrl.ec_startup.device
+        ms_all = torch.as_tensor(ms, dtype=I32, device=dev).expand(cps, b)
 
         # --- pointer phase: the exact per-chunk control sequence ---
         ring_data0 = ctrl.farend_buf.data
@@ -1389,14 +1505,9 @@ class FusedAecm(nn.Module):
             warns.append(warn_c)
 
         # --- one ring data pass for all cps chunks ---
-        ring_args = (ring_data0, torch.stack([p[0] for p in ptrs]),
-                     far.to(I32).contiguous(),
-                     torch.stack([p[1] for p in ptrs]),
-                     torch.stack([p[2] for p in ptrs]), out_len)
-        if self.use_kernel:
-            new_ring, gathered = ring_kernels.ring_multi_pass(*ring_args)
-        else:
-            new_ring, gathered = _ring_write_gather_multi(*ring_args)
+        new_ring, gathered = self._ring_pass(
+            ptrs, ring_data0,
+            torch.as_tensor(far, device=dev).to(I32).contiguous())
         ctrl = ctrl._replace(
             farend_buf=ctrl.farend_buf._replace(data=new_ring))
 
@@ -1414,7 +1525,9 @@ class FusedAecm(nn.Module):
                 rows_old.append(torch.where(run_l[c][:, None], farend_i,
                                             old_i))
                 frames_far.append(farend_i)
-            farend_old = torch.stack(rows_old, dim=1)
+            # at 8 kHz (one frame a chunk) the second replay row stays
+            farend_old = torch.stack(
+                rows_old + [farend_old[:, i] for i in range(fpc, 2)], dim=1)
         ctrl = ctrl._replace(farend_old=farend_old)
         run_rows = torch.stack([r for r in run_l for _ in range(fpc)], dim=0)
 
@@ -1423,45 +1536,81 @@ class FusedAecm(nn.Module):
                                                      self.n_frames, t)
         core_f = core_f._replace(seed=new_seed)
         far_lm = torch.cat([f.T for f in frames_far], dim=0).contiguous()
-        noisy_lm = noisy.to(I32).contiguous()
+
+        def to_lm(x):
+            x = torch.as_tensor(x, device=dev).to(I32)
+            return (x if self.lane_major_io else x.T).contiguous()
+        noisy_lm = to_lm(noisy)
+        clean_lm = to_lm(clean) if self.has_clean else None
         fill0 = core_f.frame_fill.clone()   # the kernel updates it in place
 
-        step_args = (core_f, t, far_lm, noisy_lm, phase_all, run_rows,
-                     self.mult, self.n_frames, fpc, head)
+        step_args = (core_f, t, far_lm, noisy_lm, clean_lm, phase_all,
+                     run_rows, self.mult, self.n_frames, self.has_clean,
+                     self.abs_approx, fpc, head)
         if self.use_kernel:
             res = fused_kernel.frames_kernel_call(*step_args)
         else:
             res = frames_step(*step_args)
-        core_f, out_lm, pend_hist, pend_q = res
 
-        # --- circular history append.  Streams that started mid-step have
-        # n_act < S pending blocks; they shift to the END of the head window
-        # (rows left uncovered = zeros = the initial history), which holds
-        # because a stream starts once and never pauses. ---
-        S = self.s_blocks
-        k_act = _sum0(run_rows.to(I32))
-        rot = S - ((fill0 + D.FRAME_LEN * k_act) >> 6)
-        ph, pq = pend_hist, pend_q
-        for r in range(1, S + 1):
-            cand_h = torch.cat([torch.zeros_like(pend_hist[:r * FAR_HIST_ROWS]),
-                                pend_hist[:(S - r) * FAR_HIST_ROWS]], dim=0)
-            cand_q = torch.cat([torch.zeros_like(pend_q[:r]),
-                                pend_q[:S - r]], dim=0)
-            ph = torch.where(rot == r, cand_h, ph)
-            pq = torch.where(rot == r, cand_q, pq)
-        core_f.far_history[head * FAR_HIST_ROWS:
-                           (head + S) * FAR_HIST_ROWS] = ph
-        core_f.far_q_domains[head:head + S] = pq
-        head_next = (head + S) % D.MAX_DELAY
+        if self.circular_far:
+            core_f, out_lm, pend_hist, pend_q = res
+            # Streams that started mid-step have n_act < S pending blocks;
+            # they shift to the END of the head window (rows left uncovered
+            # = zeros = the initial history), which holds because a stream
+            # starts once and never pauses.
+            S = self.s_blocks
+            k_act = _sum0(run_rows.to(I32))
+            rot = S - ((fill0 + D.FRAME_LEN * k_act) >> 6)
+            ph, pq = pend_hist, pend_q
+            for r in range(1, S + 1):
+                cand_h = torch.cat(
+                    [torch.zeros_like(pend_hist[:r * FAR_HIST_ROWS]),
+                     pend_hist[:(S - r) * FAR_HIST_ROWS]], dim=0)
+                cand_q = torch.cat([torch.zeros_like(pend_q[:r]),
+                                    pend_q[:S - r]], dim=0)
+                ph = torch.where(rot == r, cand_h, ph)
+                pq = torch.where(rot == r, cand_q, pq)
+            core_f.far_history[head * FAR_HIST_ROWS:
+                               (head + S) * FAR_HIST_ROWS] = ph
+            core_f.far_q_domains[head:head + S] = pq
+            head = (head + S) % D.MAX_DELAY
+        else:
+            core_f, out_lm = res
 
-        # --- per-chunk startup passthrough of the near input ---
+        # --- per-chunk startup passthrough of the near input (the clean
+        # one when there is one, echo_control_mobile.cc:289) ---
+        pass_lm = clean_lm if self.has_clean else noisy_lm
         out_lm = torch.cat([
             torch.where(startup_l[c][None, :],
-                        noisy_lm[c * out_len:(c + 1) * out_len],
+                        pass_lm[c * out_len:(c + 1) * out_len],
                         out_lm[c * out_len:(c + 1) * out_len])
             for c in range(cps)], dim=0)
-        return (FusedState(ctrl=ctrl, core=core_f), head_next, out_lm,
-                torch.stack(warns, dim=0))
+        out = out_lm if self.lane_major_io else out_lm.T.contiguous()
+        warn = warns[0] if cps == 1 else torch.stack(warns, dim=0)
+        new_state = FusedState(ctrl=ctrl, core=core_f)
+        if self.circular_far:
+            return new_state, head, out, warn
+        return new_state, out, warn
+
+
+def make_fused_chunk_step(sample_rate: int, has_clean: bool = False,
+                          use_kernel: bool = True, abs_approx: bool = False,
+                          lane_major_io: bool = False,
+                          chunks_per_step: int = 1,
+                          circular_far: bool = False,
+                          device=None) -> FusedAecm:
+    """The JAX package's factory of the same name, with its defaults: one
+    10 ms real-time step, batch-leading input and output, newest-first far
+    history.  Returns the FusedAecm module (see there)."""
+    return FusedAecm(sample_rate, chunks_per_step, use_kernel, device,
+                     has_clean, abs_approx, lane_major_io, circular_far)
+
+
+def _exact_block(span: int) -> bool:
+    """A span of `span` samples is whole 64-sample blocks whose count
+    divides the 100-block history: the circular schedule's condition."""
+    return (span % D.PART_LEN == 0
+            and D.MAX_DELAY % (span // D.PART_LEN) == 0)
 
 
 def clone_state(state):
@@ -1471,31 +1620,34 @@ def clone_state(state):
 def run_streams_fused(state: FusedState, far, near, sample_rate: int,
                       ms_in_sndcard_buf=40, use_kernel: bool = True,
                       clean=None, chunks_per_step: Optional[int] = None):
-    """Whole signals through the fused serving step, one step per
-    chunks_per_step x 10 ms (the JAX package's run_streams_fused).
-    far/near: (n_streams, n_samples) int16-range; ms_in_sndcard_buf: a
-    scalar, (n_streams,), (n_chunks,) or (n_chunks, n_streams).  Returns
-    (state, out (n_streams, n_chunks*chunk) int32).  The input state is
-    not modified (the loop runs on a copy).
+    """Whole signals through the fused serving step (the JAX package's
+    run_streams_fused).  far/near[/clean]: (n_streams, n_samples)
+    int16-range; ms_in_sndcard_buf: a scalar, (n_streams,), (n_chunks,) or
+    (n_chunks, n_streams).  chunks_per_step defaults to 4 at 8 kHz and 2
+    at 16 kHz (5 blocks a step), capped at the number of chunks; a tail of
+    chunks that it does not divide runs as one final smaller step.  A span
+    whose step is whole blocks dividing the history keeps the far history
+    circular.  Returns (state, out (n_streams, n_chunks*chunk) int32).  The
+    input state is not modified (the loop runs on a copy).
 
     On CUDA tensors with use_kernel=True every step runs the ring kernel
     and the frames kernel once each."""
-    if clean is not None:
-        raise NotImplementedError(
-            "dual-input (nearend_clean) serving is not ported yet")
     chunk = min(160, sample_rate // 100)
-    cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
-    _check_envelope(sample_rate, cps, state)
     dev = state.ctrl.ec_startup.device
     far = torch.as_tensor(far, device=dev).to(I32)
     near = torch.as_tensor(near, device=dev).to(I32)
+    has_clean = clean is not None
+    if has_clean:
+        clean = torch.as_tensor(clean, device=dev).to(I32)
     n_streams, n_samples = near.shape
     n_chunks = n_samples // chunk
+    cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
+    cps = max(1, min(cps, n_chunks))
     n_super, rem = divmod(n_chunks, cps)
-    if rem:
-        raise NotImplementedError(
-            f"a tail of {rem} chunk(s) that does not fill a step of {cps} "
-            "is not ported yet")
+    spans = [(0, n_super * cps, cps)] + ([(n_super * cps, n_chunks, rem)]
+                                         if rem else [])
+    for _, _, c in spans:
+        _check_envelope(sample_rate, c, use_kernel, state)
 
     ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32, device=dev)
     if ms.ndim == 0 or (ms.ndim == 1 and ms.shape[0] == n_streams):
@@ -1505,18 +1657,31 @@ def run_streams_fused(state: FusedState, far, near, sample_rate: int,
     else:
         ms_t = ms
 
-    step = FusedAecm(sample_rate, cps, use_kernel, device=dev)
-    width = cps * chunk
-    far_steps = far[:, :n_super * width].reshape(n_streams, n_super, width)
-    near_lm = near[:, :n_super * width].T
     st = clone_state(state)
-    st = st._replace(core=_to_circular_far(st.core))
-    head = 0
     outs = []
-    for s in range(n_super):
-        st, head, out, _ = step(st, head, far_steps[:, s],
-                                near_lm[s * width:(s + 1) * width],
-                                ms_t[s * cps:(s + 1) * cps])
-        outs.append(out)
-    st = st._replace(core=_from_circular_far(st.core, head))
-    return st, torch.cat(outs, dim=0).T.contiguous()
+    for lo, hi, c in spans:
+        if hi == lo:
+            continue
+        width = c * chunk
+        circ = _exact_block(width)
+        step = FusedAecm(sample_rate, c, use_kernel, dev, has_clean,
+                         lane_major_io=True, circular_far=circ)
+        near_lm = near[:, lo * chunk:hi * chunk].T
+        clean_lm = clean[:, lo * chunk:hi * chunk].T if has_clean else None
+        if circ:
+            st = st._replace(core=_to_circular_far(st.core))
+        head = 0
+        for s in range(lo, hi, c):
+            cols = slice((s - lo) * chunk, (s - lo) * chunk + width)
+            xs = (far[:, s * chunk:s * chunk + width], near_lm[cols]) + (
+                (clean_lm[cols],) if has_clean else ()) + (ms_t[s:s + c],)
+            if circ:
+                st, head, out, _ = step(st, head, *xs)
+            else:
+                st, out, _ = step(st, *xs)
+            outs.append(out)
+        if circ:
+            st = st._replace(core=_from_circular_far(st.core, head))
+    out = (torch.cat(outs, dim=0).T.contiguous() if outs
+           else near.new_zeros((n_streams, 0)))
+    return st, out

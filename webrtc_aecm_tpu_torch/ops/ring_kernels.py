@@ -53,12 +53,9 @@ def ring_multi_pass_plain(data, wpos, values, n_write, rpos, n_read: int):
                                           n_read)
 
 
-def ring_multi_pass(data, wpos, values, n_write, rpos, n_read: int):
-    """cps ring passes (write chunk c, gather chunk c, in order).
-    wpos/n_write/rpos (cps, B) int32; values (B, cps*n_read) int32; data
-    (B, C) int16.  CPU tensors take the plain version; CUDA tensors launch
-    csrc/ring.cu, which updates `data` in place and returns it.  Returns
-    (ring, gathered (B, cps*n_read) int32)."""
+def _multi_pass(data, wpos, values, n_write, rpos, n_read: int):
+    """The checks and the launch of ring_multi_pass / ring_pass; returns
+    (ring, gathered, whether the CUDA kernel was launched)."""
     dev = data.device
     if data.ndim != 2 or wpos.ndim != 2:
         raise ValueError("ring must be (B, C) and the positions (cps, B)")
@@ -69,7 +66,7 @@ def ring_multi_pass(data, wpos, values, n_write, rpos, n_read: int):
     _build.require(values, "values", I32, (b, cps * n_read), dev)
     if dev.type == "cpu":
         return ring_multi_pass_plain(data, wpos, values, n_write, rpos,
-                                     n_read)
+                                     n_read) + (False,)
     if dev.type != "cuda":
         raise RuntimeError(f"no ring kernel for device {dev}")
     gathered = torch.empty((b, cps * n_read), dtype=I32, device=dev)
@@ -77,19 +74,34 @@ def ring_multi_pass(data, wpos, values, n_write, rpos, n_read: int):
                   wpos.data_ptr(), n_write.data_ptr(), rpos.data_ptr(),
                   values.data_ptr(), gathered.data_ptr(), b, cap, cps,
                   n_read)
-    _RING.launches += 1
+    return data, gathered, True
+
+
+def ring_multi_pass(data, wpos, values, n_write, rpos, n_read: int):
+    """cps ring passes (write chunk c, gather chunk c, in order).
+    wpos/n_write/rpos (cps, B) int32; values (B, cps*n_read) int32; data
+    (B, C) int16.  CPU tensors take the plain version; CUDA tensors launch
+    csrc/ring.cu, which updates `data` in place and returns it.  Returns
+    (ring, gathered (B, cps*n_read) int32)."""
+    data, gathered, launched = _multi_pass(data, wpos, values, n_write,
+                                           rpos, n_read)
+    _RING.launches += launched
     return data, gathered
 
 
-ring_multi_pass.launches = 0   # launches of the CUDA kernel
-_RING = ring_multi_pass        # the counter's owner, whatever rebinds the name
-
-
 def ring_pass(data, wpos, values, n_write, rpos, n_read: int):
-    """The one-chunk pass (the TPU package's ring_pass_tpu): wpos, n_write,
-    rpos (B,), values (B, n_read); the same kernel at cps = 1."""
-    return ring_multi_pass(data, wpos[None], values, n_write[None],
-                           rpos[None], n_read)
+    """The one-chunk pass (the TPU package's ring_pass_tpu), the fused
+    10 ms real-time step's: wpos, n_write, rpos (B,) int32, values (B,
+    n_read); the same kernel at cps = 1, counted apart."""
+    data, gathered, launched = _multi_pass(data, wpos[None], values,
+                                           n_write[None], rpos[None], n_read)
+    _PASS.launches += launched
+    return data, gathered
+
+
+ring_multi_pass.launches = 0   # launches of the CUDA kernel, per wrapper
+ring_pass.launches = 0
+_RING, _PASS = ring_multi_pass, ring_pass   # the counters' owners
 
 
 # ---------------------------------------------------------------------------
