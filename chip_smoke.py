@@ -23,24 +23,35 @@ final line):
   3. kernels   each CUDA kernel == its plain PyTorch version on the card at
                full width (4096 streams), bit for bit, outputs and state:
                the ring kernels on planted edge cases; the frames kernel in
-               each of its modes (16 and 8 kHz circular, 2, 3 and 4 block
-               slots newest-first, clean, abs_approx) on steps captured from
-               the kernel path and again at 4099 streams, and on a planted
-               case (re-blocking fills, run rows, ties in the delay search,
-               fixed delays in the pending blocks and deep in the history,
-               startup transitions, full-scale and all-zero inputs, comfort
-               noise at full scale; every shift of an inverse-transform
-               stage and the saturating adds must show in the plain run) at
-               4096 and 4099 streams, in the main path's mode and in the
-               8 kHz 3-slot clean mode with the newest-first history merge
-               (0 to 3 new blocks among the 8 streams of a thread block)
+               each of its modes (FRAMES_MODES: 16 and 8 kHz circular, 2, 3
+               and 4 block slots newest-first, clean, abs_approx; a delay
+               estimator resized to 37, 64, 128 and 257 rows or rebuilt with
+               lookahead capacity 4 and per-stream lookahead 0..3; steps of
+               8, 10 and 25 slots at 16 kHz and 7 and 10 at 8 kHz) on steps
+               captured from the kernel path and again at 4099 streams, and
+               on a planted case (re-blocking fills, run rows, ties in the
+               delay search, fixed delays in the pending blocks, deep in the
+               history and beyond it, startup transitions, full-scale and
+               all-zero inputs, comfort noise at full scale, lookaheads the
+               capacity clamps; every shift of an inverse-transform stage and
+               the saturating adds must show in the plain run) at 4096 and
+               4099 streams, in the main path's mode, in the 8 kHz 3-slot
+               clean mode with the newest-first history merge (0 to 3 new
+               blocks among the 8 streams of a thread block), and in both at
+               history size 257 and lookahead capacity 4
   4. golden    run_streams_fused through the kernels == the JAX package's
                answer stored in tests/data/torch_golden_16k.npz
   5. golden    every entry of tests/data/torch_golden_envelope.npz out of
      envelope  the kernel path: run_streams_fused at 8 and 16 kHz with
                tails, clean inputs and per-stream modes, the 10 ms step
                (abs_approx too), single frames calls in each mode,
-               AecmInstance, a JAX checkpoint resumed on both engines
+               AecmInstance, a JAX checkpoint resumed on both engines;
+               and every run_streams_fused entry of
+               tests/data/torch_golden_reconfig.npz (resized and
+               lookahead-capacity-4 delay estimators, wide steps with tails)
+               out of the kernel path, and its single-stream functional
+               sequences (create, set_config, init_echo_path, buffer_farend,
+               process) through the ring kernels
   6. main      the 16 kHz desync scene at 4096 streams x 1 s through the
                fused engine's kernel path == its plain path; the frames and
                ring kernels must each launch once per step (50 steps)
@@ -59,7 +70,11 @@ final line):
                equal, and the launches exact (one frames kernel per fused
                step, one ring_multi_pass per multi-chunk step, one ring_pass
                per 10 ms fused step, one ring_write and one ring_read per
-               batch-major chunk)
+               batch-major chunk); and run_streams_fused at 3, 4 and 10
+               chunks a step at 16 kHz and 5 and 8 at 8 kHz (one with a
+               clean input, one at history size 257 and capacity 4) over 37
+               chunks: kernel path == plain path, one frames launch and one
+               ring launch per step, tails included
  11. timing    streams served at 1x real time on each engine's kernel and
                plain paths at 16 kHz and on the kernel paths at 8 kHz (CUDA
                events); the real-time step's wall ms per 10 ms chunk at 8
@@ -72,9 +87,10 @@ final line):
                by what a plain run shows the data to need, over the
                card's int32 rate) and, where PyTorch calls compute the same
                function, their time; the frames kernel at 1024, 4096 and
-               16384 streams and in each mode; the launch floor (an empty
-               kernel through the same binding); what the stream handle, an
-               argument check and the output allocations cost the host
+               16384 streams and in each mode of phase 3; the launch floor
+               (an empty kernel through the same binding); what the stream
+               handle, an argument check and the output allocations cost
+               the host
 The kernels JSON keeps the names of the TPU kernels: `ring_gather` is the
 read kernel (ring_kernels.ring_read), which took the gather over.
 The last three lines are the kernels JSON, the card, and the device JSON.
@@ -129,8 +145,7 @@ ACTIVE_BLOCK_OPS = {
     "64 x (9 + 7) + 1":
         642 + FFT_BUTTERFLIES * INVERSE_BUTTERFLY_OPS + 49 + 1025,
     "two binary spectra: 2 x (32 bins x 10 + 1)": 642,
-    "delay search: 100 rows x 7 (xor, popc, compare, compare and two "
-    "selects for the minimum, max) + 40 on one-row leaves": 740,
+    "delay search: 40 on one-row leaves (its rows: FRAMES_OPS)": 40,
     "pending block packed (40 x 4), aligned far block unpacked (65 x 2), "
     "10 on one-row leaves": 300,
     "energies and VAD: 65 bins x 4, four log energies x 10, 60 on one-row "
@@ -141,13 +156,24 @@ ACTIVE_BLOCK_OPS = {
     "efw = dfw * hnl: 65 bins x 8": 520,
     "sample placement: 128 samples x 5": 640,
 }
-# what is counted: (operations each, how); all but the last two are per
-# active block, and all but the first only where the data takes the path
+# what is counted: (operations each, how): per active block, per history
+# row or entry of one, per row moved, per inactive slot, frame or step;
+# all but the first two only where the data or the mode takes the path
 FRAMES_OPS = {
     "active block": (sum(ACTIVE_BLOCK_OPS.values()), "ACTIVE_BLOCK_OPS"),
+    "delay search row": (7, "each history row of an active block: xor, "
+                         "popc, compare, compare and two selects for the "
+                         "minimum, max"),
     "mean_bit_counts row updated": (12, "far-end bit count > 0"),
-    "histogram updated": (1263, "non-stationary far end: 101 entries x (6 "
-                          "compares + 3 selects + 7 float32 / 2)"),
+    "histogram entry updated": (12.5, "non-stationary far end: each of the "
+                                "history size + 1 entries, 6 compares + 3 "
+                                "selects + 7 float32 / 2"),
+    "lookahead shift and select": (3, "lookahead capacity > 1: the new "
+                                   "row's index and the lookahead clamped "
+                                   "to the capacity, per active block"),
+    "window reset row": (4, "general instance, each row a window change "
+                         "moves (2 H + 3 x 64 + capacity a stream): its "
+                         "index, 2 bound compares, a select"),
     "NLMS": (6110, "step size not 0: 65 bins x 94"),
     "hnl squared": (299, "mult == 2: 65 x 3 + 21 + 1 + 41 x 2"),
     "NLP": (587, "nlp_flag: 65 bins x 9 + 2"),
@@ -395,11 +421,19 @@ def ptxas_entries(report):
 
 
 def frames_instance(entry):
-    """(has_clean, circular) of a frames_step_kernel<CLEAN, CIRC> entry,
-    from its mangled template arguments; None for another kernel."""
+    """(has_clean, circular, general) of a frames_step_kernel<CLEAN, CIRC,
+    GEN> entry, from its mangled template arguments; None for another
+    kernel."""
     import re
-    m = re.search(r"frames_step_kernelILb([01])ELb([01])E", entry)
-    return None if m is None else (m.group(1) == "1", m.group(2) == "1")
+    m = re.search(r"frames_step_kernelILb([01])ELb([01])ELb([01])E", entry)
+    return None if m is None else tuple(m.group(i) == "1" for i in (1, 2, 3))
+
+
+# the general instances' layouts that phase_build reports: (history size,
+# lookahead capacity, frames of the step) for the circular and the
+# newest-first history
+GENERAL_LAYOUTS = {True: ((100, 1, 8), (100, 4, 4), (257, 4, 4)),
+                   False: ((100, 1, 6), (257, 4, 2))}
 
 
 def phase_build():
@@ -414,21 +448,40 @@ def phase_build():
         inst = frames_instance(entry)
         if inst is None:
             continue
-        lay = fused_kernel.frames_layout(*inst)
-        log(f"  frames kernel, {'clean' if inst[0] else 'single'} input, "
-            f"{'circular' if inst[1] else 'newest-first'} history: "
+        clean, circ, gen = inst
+        shapes = GENERAL_LAYOUTS[circ] if gen else ((100, 1, 4),)
+        lays = []
+        for h, cap, n_frames in shapes:
+            lay = fused_kernel.frames_layout(clean, circ, h, cap, n_frames)
+            if lay["general"] != gen:
+                fail(f"frames layout H={h} cap={cap} {n_frames} frames: "
+                     f"general {lay['general']}, the instance {gen}")
+            if gen and lay["smem_bytes"] != 4 * (
+                    fused_kernel.TABLE_WORDS + lay["streams_per_block"]
+                    * fused_kernel.stream_words(h, cap, clean)):
+                fail(f"frames layout H={h} cap={cap}: {lay['smem_bytes']} "
+                     "bytes, fused_kernel.stream_words says otherwise")
+            lays.append(
+                (f"H={h} capacity {cap} {n_frames} frames: " if gen else "")
+                + f"{lay['streams_per_block']} streams per block, "
+                f"{lay['smem_bytes']} bytes of shared memory per block, "
+                f"{lay['blocks_per_sm']} blocks = {lay['warps_per_sm']} "
+                "resident warps per SM")
+        log(f"  frames kernel, {'clean' if clean else 'single'} input, "
+            f"{'circular' if circ else 'newest-first'} history, "
+            f"{'general' if gen else 'main path'} instance: "
             f"{info.get('registers')} registers, {info.get('stack')} bytes "
             f"of stack frame, {info.get('spill_stores')} / "
-            f"{info.get('spill_loads')} bytes spilled; one warp per stream, "
-            f"{lay['streams_per_block']} streams per block, "
-            f"{lay['smem_bytes']} bytes of shared memory per block, "
-            f"{lay['blocks_per_sm']} blocks = {lay['warps_per_sm']} "
-            "resident warps per SM")
-        if inst == (False, True) and (
-                info.get("stack") or info.get("spill_stores")
-                or lay["smem_bytes"] != 108160 or lay["warps_per_sm"] != 16):
-            log("  WARNING: the single-input circular instance lost its "
-                "layout (no stack, no spill, 108160 bytes, 16 warps per SM)")
+            f"{info.get('spill_loads')} bytes spilled; one warp per stream; "
+            + "; ".join(lays))
+        if inst == (False, True, False):
+            lay = fused_kernel.frames_layout(False, True)
+            if (info.get("stack") or info.get("spill_stores")
+                    or lay["smem_bytes"] != 108160
+                    or lay["warps_per_sm"] != 16):
+                log("  WARNING: the single-input circular instance lost its "
+                    "layout (no stack, no spill, 108160 bytes, 16 warps per "
+                    "SM)")
     return _build.build_info
 
 
@@ -500,9 +553,11 @@ class PlainProbe:
     SPL = ("sat_w16", "add_sat_w32")
 
     def __init__(self, torch, core, run_rows):
+        from webrtc_aecm_tpu_torch import fused
         self.torch = torch
         n_act = (core.frame_fill[0] + 80 * run_rows.sum(0)) >> 6
-        self.act = [n_act > s for s in range(5)]   # at most 5 slots
+        self.act = [n_act > s for s in range(
+            fused._n_slots_for(run_rows.shape[0]))]
         self.slot, self.in_ifft = -1, False
         self.seen, self.count = {}, {"active block": sum(
             a.sum() for a in self.act)}
@@ -524,7 +579,7 @@ class PlainProbe:
             return orig["_process_block_f"](*args)
 
         def _process_binary_spectrum_f(near, farend, bits):
-            stirred = farend.bit_counts[:100] > 0
+            stirred = farend.bit_counts > 0
             probe.mark("histogram updated", stirred.any(0))
             probe.count["mean_bit_counts row updated"] = probe.count.get(
                 "mean_bit_counts row updated", 0) + (
@@ -552,13 +607,13 @@ class PlainProbe:
             return orig["_butterfly_inputs"](fr, fi, t, s)
 
         def sat_w16(x):
-            if 0 <= probe.slot < 5:
+            if 0 <= probe.slot < len(probe.act):
                 probe.mark("a saturating int16 add or clamp that clipped",
                            ((x > 32767) | (x < -32768)).any(0))
             return orig["sat_w16"](x)
 
         def add_sat_w32(a, b):
-            if 0 <= probe.slot < 5:
+            if 0 <= probe.slot < len(probe.act):
                 total = a.long() + b.long()
                 probe.mark("a saturating int32 add that clipped",
                            ((total > 2 ** 31 - 1) | (total < -2 ** 31)
@@ -627,16 +682,18 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
         leaf[rows, mask] = torch.as_tensor(value, dtype=leaf.dtype,
                                            device=dev)
 
+    history = core.de_near.bit_counts.shape[0]
+    la_cap = core.de_near.binary_history.shape[0]
     # a fresh state: every mean_bit_counts row equal, histories empty
     m = where("fresh state (all minima equal)", i % 5 == 0)
-    fresh = fused.create_fused(b, fs, device=dev).core
+    fresh = reconfigured_fused(torch, dev, b, fs, history, la_cap).core
     if head is not None:
         fresh = fused._to_circular_far(fresh)
     for (_, leaf), (_, new) in zip(flatten(core), flatten(fresh)):
         leaf[:, m] = new[:, m]
     # two equal valleys that the far-end rows sliding past them leave alone
     m = where("two equal minima", i % 7 == 1)
-    for r in (17, 60):
+    for r in (17, 60 if history <= 100 else history - 27):
         put(core.de_near.mean_bit_counts, m, 0, slice(r, r + 1))
         put(core.de_farend.bit_counts, m, 0, slice(r - 5, r))
         put(core.de_farend.binary_history, m, 0, slice(r - 5, r))
@@ -656,9 +713,14 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
                                          device=dev)[:, None]
     # fixed delays: in the step's own pending blocks, just past them, and
     # deep in the history (for the circular one on both sides of the head)
-    fixed = torch.as_tensor([0, 2, 4, 5, 50, 97, 99], dtype=torch.int32,
-                            device=dev)[(i // 11) % 7]
+    delays = [0, 2, 4, 5, 50, 97, 99] + ([150, history - 1]
+                                         if history > 100 else [])
+    fixed = torch.as_tensor(delays, dtype=torch.int32,
+                            device=dev)[(i // 11) % len(delays)]
     m = where("fixed_delay >= 0", (i % 11 == 2) & ~hist_m)
+    if history > 100:
+        where("fixed delay beyond the far history (a zero block)",
+              m & (fixed >= 100))
     core.fixed_delay[0, m] = fixed[m]
     where("fixed delay in the pending blocks", m & (fixed <= 4))
     if head is not None:
@@ -690,6 +752,14 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
         put(core.tot_count, m, count)
     put(core.de_near.robust_validation_enabled,
         where("robust validation on", i % 31 == 11), 1)
+    if la_cap > 1:
+        # lookahead values the capacity clamps
+        put(core.de_near.lookahead, where("lookahead above the capacity",
+                                          i % 41 == 5), la_cap + 5)
+        put(core.de_near.lookahead, where("lookahead below 0", i % 41 == 6),
+            -3)
+        where("lookahead at the capacity's last row",
+              core.de_near.lookahead[0] == la_cap - 1)
     # full-scale inputs: the IFFT's stage shifts and the saturating adds
     n = far.shape[0]
     tone = np.round(32767 * np.sin(2 * np.pi * 9 * np.arange(n) / 128))
@@ -726,7 +796,7 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
                        == v))
         where("history shift with a fixed delay at the rows that move",
               m & (core.fixed_delay[0] >= 97))
-    lows = core.de_near.mean_bit_counts[:100]
+    lows = core.de_near.mean_bit_counts[:history]
     where("equal minima in mean_bit_counts",
           (lows == lows.min(0).values).sum(0) >= 2)
     return core, (t, far, noisy, clean, phase, run_rows, mult, n_frames,
@@ -824,22 +894,58 @@ def ring_io_case(torch, dev, b, n, rng):
 
 
 # the modes of the frames kernel held against its plain version on the
-# card: (name, sample rate, chunks per step, clean input, abs_approx); the
-# first is the main path's
+# card: (name, sample rate, chunks per step, clean input, abs_approx,
+# delay-estimator history size, lookahead capacity (> 1: per-stream
+# lookahead b mod capacity)); the first is the main path's, the next seven
+# the other modes of the main path's instances, the rest the general
+# instances': a resized or rebuilt delay estimator, and steps of more than
+# 5 block slots
 FRAMES_MODES = (
-    ("16k circular", 16000, 2, False, False),
-    ("8k circular", 8000, 4, False, False),
-    ("8k 2 slots", 8000, 1, False, False),
-    ("8k 3 slots clean", 8000, 2, True, False),
-    ("8k 4 slots abs_approx", 8000, 3, False, True),
-    ("16k 3 slots clean abs_approx", 16000, 1, True, True),
-    ("16k circular clean", 16000, 2, True, False),
-    ("16k 3 slots, the 10 ms step", 16000, 1, False, False),
+    ("16k circular", 16000, 2, False, False, 100, 1),
+    ("8k circular", 8000, 4, False, False, 100, 1),
+    ("8k 2 slots", 8000, 1, False, False, 100, 1),
+    ("8k 3 slots clean", 8000, 2, True, False, 100, 1),
+    ("8k 4 slots abs_approx", 8000, 3, False, True, 100, 1),
+    ("16k 3 slots clean abs_approx", 16000, 1, True, True, 100, 1),
+    ("16k circular clean", 16000, 2, True, False, 100, 1),
+    ("16k 3 slots, the 10 ms step", 16000, 1, False, False, 100, 1),
+    ("16k circular, lookahead 4", 16000, 2, False, False, 100, 4),
+    ("16k circular, H 37", 16000, 2, False, False, 37, 1),
+    ("8k circular, H 64", 8000, 4, False, False, 64, 1),
+    ("16k circular clean, H 128", 16000, 2, True, False, 128, 1),
+    ("16k circular, H 257 lookahead 4", 16000, 2, False, False, 257, 4),
+    ("8k 3 slots clean, H 257 lookahead 4", 8000, 2, True, False, 257, 4),
+    ("16k 8 slots", 16000, 3, False, False, 100, 1),
+    ("16k 10 slots circular", 16000, 4, False, False, 100, 1),
+    ("16k 10 slots circular, H 128 lookahead 4", 16000, 4, False, False, 128,
+     4),
+    ("16k 25 slots circular clean", 16000, 10, True, False, 100, 1),
+    ("8k 7 slots", 8000, 5, False, False, 100, 1),
+    ("8k 10 slots circular", 8000, 8, False, False, 100, 1),
 )
 
 
+def reconfigured_fused(torch, dev, b, fs, history, cap):
+    """Fresh fused streams whose delay estimator is resized to `history`
+    (set_history_size) and, for cap > 1, rebuilt with lookahead capacity
+    cap and per-stream lookahead b mod cap."""
+    from webrtc_aecm_tpu_torch import delay_estimator as de, fused
+    from webrtc_aecm_tpu_torch.parallel import batch as pbatch
+    st = pbatch.create_batch(b, fs, device=dev)
+    dn, df = st.core.de_near, st.core.de_farend
+    if history != 100:
+        dn, df = de.set_history_size(dn, df, history)
+    if cap > 1:
+        dn = dn._replace(
+            binary_history=torch.zeros((b, cap), dtype=torch.int64,
+                                       device=dev),
+            lookahead=torch.arange(b, dtype=torch.int32, device=dev) % cap)
+    return fused.to_fused_state(st._replace(core=st.core._replace(
+        de_near=dn, de_farend=df)))
+
+
 def capture_mode(torch, dev, fs, cps, with_clean, abs_approx, b, n_warm,
-                 n_check):
+                 n_check, history=100, cap=1):
     """A fused step of this mode over the desync scene at b streams: n_warm
     steps on the plain path, then n_check on the kernel path with every
     kernel launch checked against its plain version.  Returns the
@@ -851,7 +957,7 @@ def capture_mode(torch, dev, fs, cps, with_clean, abs_approx, b, n_warm,
     dv = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     far_t, near_t, ms_t = dv(far).int(), dv(near).int(), dv(ms)
     cl_t = dv(clean_input(far)).int() if with_clean else None
-    st = fused.create_fused(b, fs, device=dev)
+    st = reconfigured_fused(torch, dev, b, fs, history, cap)
     head, capture = 0, None
     for s in range(n_warm + n_check):
         if s in (0, n_warm):
@@ -1067,6 +1173,123 @@ def phase_golden_envelope(torch, dev):
     return n_entries, n_leaves, frames_launches
 
 
+def reconfig_tool():
+    """tools/make_torch_golden_reconfig.py as a module: its scenes and
+    entry tables (numpy only at import)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_golden_reconfig",
+        os.path.join(REPO, "tools", "make_torch_golden_reconfig.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_golden_reconfig(torch, dev):
+    """Every JAX answer of tests/data/torch_golden_reconfig.npz that a
+    kernel serves, on the card: run_streams_fused on resized and
+    lookahead-capacity-4 delay estimators and at wide steps with tails,
+    out of the kernel path, and the single-stream functional sequence
+    through the ring kernels."""
+    from webrtc_aecm_tpu_torch import api, convert, fused, fused_kernel
+    gen = reconfig_tool()
+    g = np.load(os.path.join(REPO, "tests", "data",
+                             "torch_golden_reconfig.npz"))
+    b, n_leaves, n_entries = gen.B, 0, 0
+    launches0 = fused_kernel.frames_kernel_call.launches
+    for name, (fs, n_chunks, burst, seed, with_clean, history, cap,
+               cps) in gen.RSF.items():
+        far, near, clean = gen.scene(fs, b, n_chunks, seed, with_clean)
+        st = reconfigured_fused(torch, dev, b, fs, history, cap)
+        fin, out = fused.run_streams_fused(
+            st, far, near, fs, gen.desync_ms(n_chunks, b, burst),
+            use_kernel=True, clean=clean, chunks_per_step=cps)
+        torch.cuda.synchronize()
+        if not np.array_equal(out.cpu().numpy(),
+                              g[f"rsf.{name}.out"].astype(np.int32)):
+            fail(f"golden reconfig rsf.{name}: outputs differ from the JAX "
+                 "package's")
+        n_leaves += golden_state_check(f"rsf.{name}",
+                                       convert.fused_state_to_numpy(fin), g,
+                                       f"rsf.{name}.state.")
+        n_entries += 1
+    frames_launches = fused_kernel.frames_kernel_call.launches - launches0
+    for fs, (n_chunks, _, echo_mode, _) in gen.FN.items():
+        far, near, ms, ep = gen.fn_inputs(fs)
+        n = min(160, fs // 100)
+        s = api.create(fs, device=dev)
+        s = api.set_config(s, 1, echo_mode)
+        s = api.init_echo_path(s, torch.as_tensor(ep, device=dev))
+        outs, warns = [], []
+        for c in range(n_chunks):
+            cols = slice(c * n, (c + 1) * n)
+            s = api.buffer_farend(s, torch.as_tensor(far[cols], device=dev),
+                                  fs // 8000)
+            s, out, warn = api.process(
+                s, torch.as_tensor(near[cols], device=dev), None, n,
+                int(ms[c]), fs)
+            outs.append(out)
+            warns.append(warn)
+        torch.cuda.synchronize()
+        p = f"fn.{fs}"
+        if not (np.array_equal(torch.stack(outs).cpu().numpy(),
+                               g[f"{p}.out"].astype(np.int32))
+                and np.array_equal(torch.stack(warns).cpu().numpy(),
+                                   g[f"{p}.warn"])
+                and np.array_equal(api.get_echo_path(s).cpu().numpy(),
+                                   g[f"{p}.echo_path"].astype(np.int32))):
+            fail(f"golden reconfig {p}: the functional sequence differs "
+                 "from the JAX package's")
+        n_leaves += golden_state_check(p, convert.aecm_state_to_numpy(s), g,
+                                       f"{p}.state.")
+        n_entries += 1
+    return n_entries, n_leaves, frames_launches
+
+
+# the wide steps run at full width with their launches counted: (sample
+# rate, chunks per step, clean input, history size, lookahead capacity)
+WIDE_RUNS = ((16000, 3, False, 100, 1), (16000, 4, False, 100, 1),
+             (16000, 10, True, 100, 1), (8000, 5, False, 257, 4),
+             (8000, 8, False, 100, 1))
+WIDE_CHUNKS = 37
+
+
+def phase_wide(torch, dev):
+    """run_streams_fused at 4096 streams at each width of WIDE_RUNS over
+    37 chunks (a tail each): the kernel path == the plain path, output and
+    state, and exactly one frames launch and one ring launch per step."""
+    from webrtc_aecm_tpu_torch import fused
+    totals, worst = {}, 0.0
+    for fs, cps, with_clean, history, cap in WIDE_RUNS:
+        far, near, ms = desync_scene(B_FULL, WIDE_CHUNKS, 24, 5, 64, fs=fs)
+        clean = clean_input(far) if with_clean else None
+        st = reconfigured_fused(torch, dev, B_FULL, fs, history, cap)
+        n_super, rem = divmod(WIDE_CHUNKS, cps)
+        want = {"frames_step": n_super + (rem > 0),
+                "ring_multi_pass": n_super + (rem > 1),
+                "ring_pass": int(rem == 1), "ring_write": 0,
+                "ring_gather": 0}
+        res_k, launches = counted(torch, lambda: fused.run_streams_fused(
+            st, far, near, fs, ms, use_kernel=True, clean=clean,
+            chunks_per_step=cps))
+        tag = (f"{fs // 1000} kHz, {cps} chunks a step"
+               f"{', clean' if with_clean else ''}, H {history}, "
+               f"capacity {cap}")
+        if launches != want:
+            fail(f"wide steps {tag}: launches {launches}, expected {want}")
+        res_p = fused.run_streams_fused(st, far, near, fs, ms,
+                                        use_kernel=False, clean=clean,
+                                        chunks_per_step=cps)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_trees(f"wide steps {tag}", res_k, res_p))
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  {tag}: kernel path == plain path at B={B_FULL} over "
+            f"{WIDE_CHUNKS} chunks (output, every state leaf); launches "
+            f"{want}")
+    return totals, worst
+
+
 ENVELOPE_CHUNKS, ENVELOPE_STEPS = 105, 20
 
 
@@ -1242,10 +1465,11 @@ def phase_kernels(torch, dev):
     # through the kernels, each launch checked against the plain version;
     # the last captured call again at 4099 streams (a ragged last block)
     captures = {}
-    for name, fs, cps, with_clean, absa in FRAMES_MODES:
+    for name, fs, cps, with_clean, absa, history, la_cap in FRAMES_MODES:
         n_warm = 20 if name == "16k circular" else -(-24 // cps)
         cap = capture_mode(torch, dev, fs, cps, with_clean, absa, B_FULL,
-                           n_warm, 3 if name == "16k circular" else 2)
+                           n_warm, 3 if name == "16k circular" else 2,
+                           history, la_cap)
         captures[name] = cap
         for k in ("frames", "ring", "ring_pass"):
             worst[k] = max(worst[k], cap.worst[k])
@@ -1258,10 +1482,14 @@ def phase_kernels(torch, dev):
     for b, head in ((B_FULL, 95), (B_FULL + 3, 90)):
         worst["frames"] = max(worst["frames"], frames_planted_check(
             torch, dev, main.frames_args, b, head, "16k circular"))
-    for b in (B_FULL, B_FULL + 3):
+    for name in ("8k 3 slots clean", "8k 3 slots clean, H 257 lookahead 4"):
+        for b in (B_FULL, B_FULL + 3):
+            worst["frames"] = max(worst["frames"], frames_planted_check(
+                torch, dev, captures[name].frames_args, b, None, name))
+    name = "16k circular, H 257 lookahead 4"
+    for b, head in ((B_FULL, 95), (B_FULL + 3, 90)):
         worst["frames"] = max(worst["frames"], frames_planted_check(
-            torch, dev, captures["8k 3 slots clean"].frames_args, b, None,
-            "8k 3 slots clean"))
+            torch, dev, captures[name].frames_args, b, head, name))
     return worst, captures
 
 
@@ -1426,21 +1654,27 @@ def frames_bytes(rest, b):
     the far history read and written once, the far-history rows the step's
     block slots fetch, the step's inputs and outputs; with the newest-first
     history the whole history read and written once more (the merge, 32.8
-    KB a stream), with the circular one the pending blocks written."""
+    KB a stream), and in the general instance its pending blocks written
+    and read back; with the circular one the pending blocks written."""
     from webrtc_aecm_tpu_torch import fused, fused_kernel
+    core = rest[0]
+    history, cap = fused_kernel.core_shape(core)
     state = 0
-    for path, shape, dtype in fused_kernel._leaf_layout(1):
+    for path, shape, dtype in fused_kernel._leaf_layout(1, history, cap):
         if path not in ("far_history", "far_q_domains"):
             state += shape[0] * dtype.itemsize
     far, noisy, clean, phase, run_rows = rest[2:7]
-    n_slots, head = fused._n_slots_for(rest[8]), rest[12]
+    n_frames, head = rest[8], rest[12]
+    n_slots = fused._n_slots_for(n_frames)
     ins = sum(x.shape[0] for x in (far, noisy, clean, phase, run_rows)
               if x is not None) * 4
-    history = n_slots * (40 + 1) * 4
+    history_bytes = n_slots * (40 + 1) * 4
     if head is None:
-        history += 2 * 100 * (40 + 1) * 4
+        history_bytes += 2 * 100 * (40 + 1) * 4
+        if fused_kernel.general_instance(history, cap, n_frames, False):
+            history_bytes += 2 * n_slots * (40 + 1) * 4
     outs = (far.shape[0] + (n_slots * 41 if head is not None else 0)) * 4
-    return (2 * state + ins + history + outs) * b
+    return (2 * state + ins + history_bytes + outs) * b
 
 
 def frames_ops(torch, rest):
@@ -1448,19 +1682,34 @@ def frames_ops(torch, rest):
     counts of FRAMES_OPS times what a plain run of the call shows its data
     to need (active and inactive blocks, and per active block the
     data-dependent paths).  Returns (operations, {what: how many})."""
-    from webrtc_aecm_tpu_torch import fused
+    from webrtc_aecm_tpu_torch import fused, fused_kernel
     core, run_rows, mult, n_frames = rest[0], rest[6], rest[7], rest[8]
     has_clean, abs_approx, head = rest[9], rest[10], rest[12]
+    history, la_cap = fused_kernel.core_shape(core)
     with PlainProbe(torch, core, run_rows) as probe:
         fused.frames_step(fused.clone_state(core), *rest[1:])
     b = run_rows.shape[1]
-    n = {k: int(v) for k, v in probe.count.items() if k in FRAMES_OPS}
+    n = {k: int(v) for k, v in probe.count.items()}
     active = n["active block"]
     inactive = (fused._n_slots_for(n_frames) * b - active
                 if head is not None else 0)
     act_of = lambda leaf: int(sum(  # noqa: E731
         (a & (leaf[0] != 0)).sum() for a in probe.act))
-    times = dict(n, **{
+    resets = 0
+    if fused_kernel.general_instance(history, la_cap, n_frames,
+                                     head is not None):
+        n_act = sum(a.long() for a in probe.act)
+        resets = int(((n_act - 1).clamp(min=0) // 5).sum())
+    times = {
+        "active block": active,
+        "delay search row": active * history,
+        "mean_bit_counts row updated": n.get("mean_bit_counts row updated",
+                                             0),
+        "histogram entry updated": n.get("histogram updated", 0)
+        * (history + 1),
+        "lookahead shift and select": active if la_cap > 1 else 0,
+        "window reset row": resets * (2 * history + 3 * 64 + la_cap),
+        "NLMS": n.get("NLMS", 0),
         "hnl squared": active if mult == 2 else 0,
         "NLP": act_of(core.nlp_flag),
         "comfort noise": act_of(core.cng_mode),
@@ -1469,7 +1718,7 @@ def frames_ops(torch, rest):
                                   if abs_approx else 0),
         "inactive slot": inactive,
         "frame": n_frames * b,
-        "step": b})
+        "step": b}
     return sum(times[k] * ops for k, (ops, _) in FRAMES_OPS.items()), times
 
 
@@ -1797,6 +2046,13 @@ def main():
             f"({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
+        n_rc, n_leaves, n_fr = phase_golden_reconfig(torch, dev)
+        log(f"[golden reconfig] {n_rc} entries of torch_golden_reconfig.npz "
+            f"on the card ({n_fr} frames kernel launches), outputs and "
+            f"{n_leaves} state leaves == the JAX package's "
+            f"({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
         launches, worst_m, fused_ref = phase_main(torch, dev)
         log(f"[main] B={B_FULL} x 1 s desync scene: kernel path == plain "
             f"path; launches {launches} ({time.perf_counter() - t:.2f} s)")
@@ -1824,6 +2080,12 @@ def main():
         launches_env, worst_env = phase_envelope(torch, dev)
         log(f"[envelope] B={B_FULL}: AecmPipeline fused == xla at 8 and 16 "
             f"kHz, single and clean; launches {launches_env} "
+            f"({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        launches_wide, worst_wide = phase_wide(torch, dev)
+        log(f"[wide steps] B={B_FULL}: kernel path == plain path at 3 to 10 "
+            f"chunks a step; launches {launches_wide} "
             f"({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
@@ -1876,9 +2138,10 @@ def main():
         traceback.print_exc()
         fail("a phase raised")
 
-    path_err = {"frames_step": max(worst["frames"], worst_m, worst_env),
-                "ring_multi_pass": max(worst["ring"], worst_m),
-                "ring_pass": max(worst["ring_pass"], worst_env),
+    path_err = {"frames_step": max(worst["frames"], worst_m, worst_env,
+                                   worst_wide),
+                "ring_multi_pass": max(worst["ring"], worst_m, worst_wide),
+                "ring_pass": max(worst["ring_pass"], worst_env, worst_wide),
                 "ring_gather": max(worst["gather"], worst_b, worst_8k),
                 "ring_write": max(worst["write"], worst_b, worst_8k)}
     # the main paths' counts: the fused 16 kHz run (phase main), the 10 ms

@@ -5,7 +5,12 @@ at 8 kHz (robust validation, `init_echo_path`) and 16 kHz (`set_control`
 with a fixed delay and the NLP off), whose answers (output, echo path,
 delay quality) are in tests/data/torch_golden_envelope.npz
 (tools/make_torch_golden_envelope.py); the error codes 12000-12004 and the
-12100 warning; the functional re-exports.
+12100 warning; the functional re-exports, and the JAX package's
+single-stream functional sequence (`create` -> `set_config` ->
+`init_echo_path` -> per 10 ms `buffer_farend` and `process`) at 8 and
+16 kHz against its answers in tests/data/torch_golden_reconfig.npz
+(tools/make_torch_golden_reconfig.py): output, warnings, echo path and
+the final state.
 
 `AecmPipeline` checkpoints cross between the packages in both directions:
 a JAX `AecmPipeline.save` file (in the golden file) loads into the port's
@@ -128,6 +133,51 @@ def test_error_code_values_and_reexports():
     assert port.AecmState is control.AecmState
     assert api.AecmInstance(8000, device="cpu").get_buffer_farend_error(
         np.zeros(80)) == 0
+
+
+_spec_r = importlib.util.spec_from_file_location(
+    "make_torch_golden_reconfig",
+    os.path.join(REPO, "tools", "make_torch_golden_reconfig.py"))
+rgen = importlib.util.module_from_spec(_spec_r)
+_spec_r.loader.exec_module(rgen)
+
+
+@pytest.mark.parametrize("fs", list(rgen.FN))
+def test_functional_sequence_matches_jax(fs):
+    """One stream's state from api.create, in and out of the functional
+    calls as in the JAX package: out (n,) and a 0-d warning per call."""
+    from webrtc_aecm_tpu_torch import convert
+    from webrtc_aecm_tpu_torch._tree import tree_leaves_with_path
+    n_chunks, _, echo_mode, _ = rgen.FN[fs]
+    far, near, ms, ep = rgen.fn_inputs(fs)
+    n = min(160, fs // 100)
+    s = api.create(fs, device="cpu")
+    assert s.ec_startup.shape == () and s.farend_buf.data.shape == (4000,)
+    s = api.set_config(s, 1, echo_mode)
+    s = api.init_echo_path(s, torch.as_tensor(ep))
+    outs, warns = [], []
+    for c in range(n_chunks):
+        cols = slice(c * n, (c + 1) * n)
+        s = api.buffer_farend(s, far[cols], fs // 8000)
+        s, out, warn = api.process(s, near[cols], None, n, int(ms[c]), fs)
+        assert out.shape == (n,) and warn.shape == ()
+        outs.append(out)
+        warns.append(warn)
+    with np.load(os.path.join(REPO, "tests", "data",
+                              "torch_golden_reconfig.npz")) as g:
+        p = f"fn.{fs}"
+        np.testing.assert_array_equal(torch.stack(outs).numpy(),
+                                      g[f"{p}.out"].astype(np.int32))
+        np.testing.assert_array_equal(torch.stack(warns).numpy(),
+                                      g[f"{p}.warn"])
+        assert set(g[f"{p}.warn"].tolist()) == {
+            0, api.AECM_BAD_PARAMETER_WARNING}
+        np.testing.assert_array_equal(api.get_echo_path(s).numpy(),
+                                      g[f"{p}.echo_path"].astype(np.int32))
+        for path, a in tree_leaves_with_path(convert.aecm_state_to_numpy(s)):
+            b = g[f"{p}.state.{path}"]
+            assert a.dtype == b.dtype, path
+            np.testing.assert_array_equal(a, b, err_msg=path)
 
 
 def test_process_warns_on_a_bad_delay():

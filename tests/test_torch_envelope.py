@@ -14,11 +14,20 @@ chip_smoke.py holds the card's kernel path to the same file):
   slots (clean, `abs_approx`) and in the circular mode with a clean input,
   and the CNG phase rows before them, on converged states.
 
+A resized or rebuilt delay estimator and wide steps, against
+tests/data/torch_golden_reconfig.npz (tools/make_torch_golden_reconfig.py):
+`run_streams_fused` on states resized to 37, 64, 128 and 257 history rows
+or rebuilt with lookahead capacity 4 (per-stream lookahead 0..3), and at 3,
+4, 5 and 8 chunks a step (8 to 10 block slots, each with a tail) through
+`use_kernel=True` (on CPU tensors the plain path); the batch-major engine
+on the same resized states.
+
 Port against port, live: `AecmPipeline` on the fused engine == on the
 batch-major ("xla") engine, for `run` (with a tail) and `step`, at 8 and
-16 kHz, single and clean, after `set_config` and after `reset_streams`.
-And the refusals: lookahead capacity > 1, more than 5 block slots on the
-kernel path.  No test here compiles a JAX function.
+16 kHz, single and clean, after `set_config` and after `reset_streams`;
+the 10 ms step with lookahead capacity 4 == the batch-major `ChunkStep`.
+And the one refusal left: on the kernel path a history size whose stream
+does not fit a thread block.  No test here compiles a JAX function.
 """
 import importlib.util
 import os
@@ -28,7 +37,8 @@ import numpy as np
 import pytest
 import torch
 
-from webrtc_aecm_tpu_torch import convert, fused
+from webrtc_aecm_tpu_torch import convert, fused, fused_kernel
+from webrtc_aecm_tpu_torch import delay_estimator as de
 from webrtc_aecm_tpu_torch._tree import tree_leaves_with_path
 from webrtc_aecm_tpu_torch.models import AecmPipeline
 from webrtc_aecm_tpu_torch.parallel import batch as pbatch
@@ -43,12 +53,53 @@ _spec = importlib.util.spec_from_file_location(
 gen = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(gen)    # numpy only at import: the scenes
 B = gen.B
+GOLDEN_RECONFIG = os.path.join(REPO, "tests", "data",
+                               "torch_golden_reconfig.npz")
+_spec = importlib.util.spec_from_file_location(
+    "make_torch_golden_reconfig",
+    os.path.join(REPO, "tools", "make_torch_golden_reconfig.py"))
+rgen = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(rgen)
 
 
 @pytest.fixture(scope="module")
 def golden():
     with np.load(GOLDEN) as g:
         return {k: g[k] for k in g.files}
+
+
+@pytest.fixture(scope="module")
+def golden_reconfig():
+    with np.load(GOLDEN_RECONFIG) as g:
+        return {k: g[k] for k in g.files}
+
+
+def reconfigured_batch(fs, b, history, cap):
+    """Fresh batch-major streams whose delay estimator is resized to
+    `history` rows and, for cap > 1, rebuilt with lookahead capacity cap
+    and per-stream lookahead b mod cap (the golden tool's start)."""
+    st = pbatch.create_batch(b, fs, device="cpu")
+    dn, df = st.core.de_near, st.core.de_farend
+    if history != 100:
+        dn, df = de.set_history_size(dn, df, history)
+    if cap > 1:
+        dn = dn._replace(binary_history=torch.zeros((b, cap),
+                                                    dtype=torch.int64),
+                         lookahead=torch.arange(b, dtype=torch.int32) % cap)
+    return st._replace(core=st.core._replace(de_near=dn, de_farend=df))
+
+
+def check_reconfig_rsf(golden_reconfig, name, use_kernel=True):
+    """run_streams_fused on a golden reconfig entry == the JAX answer."""
+    fs, n_chunks, burst, seed, with_clean, history, cap, cps = rgen.RSF[name]
+    far, near, clean = rgen.scene(fs, rgen.B, n_chunks, seed, with_clean)
+    st = fused.to_fused_state(reconfigured_batch(fs, rgen.B, history, cap))
+    fin, out = fused.run_streams_fused(
+        st, far, near, fs, rgen.desync_ms(n_chunks, rgen.B, burst),
+        use_kernel=use_kernel, clean=clean, chunks_per_step=cps)
+    np.testing.assert_array_equal(
+        out.numpy(), golden_reconfig[f"rsf.{name}.out"].astype(np.int32))
+    assert_state(fused_leaves(fin), golden_reconfig, f"rsf.{name}.state.")
 
 
 def jax_tree(golden, prefix, like):
@@ -217,6 +268,51 @@ def test_plain_path_serves_wide_steps(golden):
     assert_state(fused_leaves(fin), golden, "rsf.16k_clean.state.")
 
 
+# the golden reconfig entries not held by the tests that took the place of
+# the refusals (below and in tests/test_torch_pipeline.py)
+RECONFIG_ONLY_HERE = ("16k_h37", "8k_h64", "16k_h257_la4", "8k_cps5_h257_la4",
+                      "16k_cps10")
+
+
+@pytest.mark.parametrize("name", RECONFIG_ONLY_HERE)
+def test_reconfigured_run_streams_fused_matches_jax(golden_reconfig, name):
+    """A resized delay estimator (37 to 257 rows; 257 with lookahead
+    capacity 4, also at 5 chunks a step), and 10 chunks a step (25 block
+    slots) with a one-chunk tail, through the fused engine."""
+    check_reconfig_rsf(golden_reconfig, name, use_kernel=False)
+
+
+@pytest.mark.parametrize("name", [
+    n for n, v in rgen.RSF.items() if v[5] != 100 or v[6] > 1])
+def test_reconfigured_batch_engine_matches_jax(golden_reconfig, name):
+    """The batch-major engine on the same resized or rebuilt states: the
+    JAX package's output, and its final state in the fused layout."""
+    fs, n_chunks, burst, seed, with_clean, history, cap, _ = rgen.RSF[name]
+    far, near, clean = rgen.scene(fs, rgen.B, n_chunks, seed, with_clean)
+    fin, out = pbatch.run_streams(
+        reconfigured_batch(fs, rgen.B, history, cap), far, near, fs,
+        rgen.desync_ms(n_chunks, rgen.B, burst), clean=clean)
+    np.testing.assert_array_equal(
+        out.numpy(), golden_reconfig[f"rsf.{name}.out"].astype(np.int32))
+    assert_state(fused_leaves(fused.to_fused_state(fin)), golden_reconfig,
+                 f"rsf.{name}.state.")
+
+
+def test_reconfig_entries_cover_the_domain():
+    """The golden reconfig runs span history sizes 37 to 257, lookahead
+    capacity 4 (at 1 and 2 chunks a step), steps of 3 to 10 chunks at both
+    rates (7 to 25 block slots, both far-history orders) with tails, and
+    a clean input."""
+    v = rgen.RSF.values()
+    assert {e[5] for e in v} == {37, 64, 100, 128, 257}
+    assert {e[6] for e in v} == {1, 4}
+    wide = {(e[0], e[7]) for e in v if e[7] and e[7] > 2}
+    assert wide == {(16000, 3), (16000, 4), (16000, 10), (8000, 5),
+                    (8000, 8)}
+    assert all(e[1] % e[7] for e in v if e[7] and e[7] > 1)   # a tail each
+    assert any(e[4] and e[5] != 100 for e in v)
+
+
 # ---------------------------------------------------------------------------
 # fused engine == batch-major engine through AecmPipeline (no JAX)
 # ---------------------------------------------------------------------------
@@ -286,35 +382,68 @@ def test_reset_streams_restores_fresh_state():
 
 
 # ---------------------------------------------------------------------------
-# refusals
+# what was refused before, and the one refusal left
 # ---------------------------------------------------------------------------
-
-def _lookahead_state(fs, n_b=2):
-    st = fused.create_fused(n_b, fs, device="cpu")
-    dn = st.core.de_near
-    return st._replace(core=st.core._replace(de_near=dn._replace(
-        binary_history=torch.zeros((4, n_b), dtype=torch.int64))))
-
 
 @pytest.mark.parametrize("fs", [8000, 16000])
 def test_lookahead_above_one_raises_in_the_step(fs):
-    chunk = fs // 100
+    """Lookahead capacity 4 (per-stream lookahead 0..3) runs in the 10 ms
+    step and gives what the batch-major ChunkStep gives on the same state:
+    output, warnings and every state leaf."""
+    chunk, n_b, n_chunks = fs // 100, 4, 12
+    far, near, _ = gen.scene(fs, n_b, n_chunks, 5)
+    ms = gen.desync_ms(n_chunks, n_b, 6)
+    st_b = reconfigured_batch(fs, n_b, 100, 4)
+    st_f = fused.to_fused_state(st_b)
     step = fused.make_fused_chunk_step(fs, device="cpu")
-    x = torch.zeros((2, chunk), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="lookahead"):
-        step(_lookahead_state(fs), x, x, 40)
+    chunk_step = pbatch.make_chunk_step(fs, device="cpu")
+    for c in range(n_chunks):
+        cols = slice(c * chunk, (c + 1) * chunk)
+        f, d, m = (torch.as_tensor(x) for x in (far[:, cols], near[:, cols],
+                                                ms[c]))
+        st_f, out_f, warn_f = step(st_f, f, d, m)
+        st_b, out_b, warn_b = chunk_step(st_b, f, d, m)
+        np.testing.assert_array_equal(out_f.numpy(), out_b.numpy())
+        np.testing.assert_array_equal(warn_f.numpy(), warn_b.numpy())
+    for (path, a), (_, b) in zip(
+            fused_leaves(st_f),
+            fused_leaves(fused.to_fused_state(st_b))):
+        np.testing.assert_array_equal(a, b, err_msg=path)
 
 
 @pytest.mark.parametrize("fs,cps", [(16000, 3), (16000, 4), (8000, 5),
                                     (8000, 8)])
-def test_more_than_five_slots_on_the_kernel_path_raises(fs, cps):
-    with pytest.raises(NotImplementedError, match="5 block slots"):
-        fused.FusedAecm(fs, cps, use_kernel=True, device="cpu")
-    x = np.zeros((2, cps * fs // 100), np.int16)
-    with pytest.raises(NotImplementedError, match="5 block slots"):
-        fused.run_streams_fused(fused.create_fused(2, fs, device="cpu"),
-                                x, x, fs, chunks_per_step=cps)
-    fused.FusedAecm(fs, cps, use_kernel=False, device="cpu")   # plain path
+def test_more_than_five_slots_on_the_kernel_path_raises(fs, cps,
+                                                        golden_reconfig):
+    """Steps of more than 5 block slots take the kernel path (on CPU
+    tensors its plain version) and give the JAX answer, a tail included."""
+    step = fused.FusedAecm(fs, cps, use_kernel=True, device="cpu")
+    assert step.circular_far == fused._exact_block(cps * (fs // 100))
+    check_reconfig_rsf(golden_reconfig, f"{fs // 1000}k_cps{cps}")
+
+
+def test_history_size_beyond_a_block_raises():
+    """The one refusal left on the kernel path: a delay-estimator history
+    size whose one stream does not fit a thread block's shared memory.
+    The plain path takes it."""
+    limit = fused_kernel.max_history_size(1, False)
+    assert (limit, fused_kernel.max_history_size(1, True)) == (10703, 10601)
+    assert fused_kernel.stream_words(100, 1, False, general=False) == 3140
+    assert fused_kernel.stream_words(100, 1, True, general=False) == 3652
+    for history, ok in ((limit, True), (limit + 1, False)):
+        st = fused.to_fused_state(reconfigured_batch(16000, 2, history, 1))
+        step = fused.FusedAecm(16000, 2, use_kernel=True, device="cpu")
+        if ok:
+            fused._check_envelope(16000, True, st)
+            continue
+        with pytest.raises(NotImplementedError,
+                           match=f"history size {history}"):
+            step(st, 0, *(torch.zeros((2, 320), dtype=torch.int32),) * 2,
+                 40)
+        with pytest.raises(NotImplementedError, match=str(limit)):
+            fused.run_streams_fused(st, np.zeros((2, 320), np.int16),
+                                    np.zeros((2, 320), np.int16), 16000)
+        fused._check_envelope(16000, False, st)     # the plain path
 
 
 def test_circular_history_needs_whole_blocks():

@@ -11,7 +11,9 @@ from the committed golden files, made from it by tools/make_torch_golden.py
 tools/make_torch_golden_envelope.py (bench.py's scene, under
 `rsf.bench16k` in torch_golden_envelope.npz); chip_smoke.py holds the GPU
 to them.  State moves between the packages only through
-webrtc_aecm_tpu_torch.convert.
+webrtc_aecm_tpu_torch.convert.  The configurations the port once refused
+(wide steps, a clean input, lookahead capacity 4) are held to
+tests/data/torch_golden_reconfig.npz (tools/make_torch_golden_reconfig.py).
 """
 import os
 import subprocess
@@ -218,37 +220,67 @@ def test_import_leaves_jax_out():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
-@pytest.mark.parametrize("kwargs,what", [
-    (dict(sample_rate=8000, chunks_per_step=5), "8 kHz"),
-    (dict(clean=np.zeros((2, 640), np.int16), chunks_per_step=4),
-     "dual-input"),
-    (dict(chunks_per_step=1, lookahead=True), "chunks_per_step=1"),
-    (dict(n_samples=800, chunks_per_step=3), "tail"),
+def _reconfig_tool():
+    """tools/make_torch_golden_reconfig.py as a module (numpy only at
+    import: its scenes and entry table)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "make_torch_golden_reconfig",
+        os.path.join(REPO, "tools", "make_torch_golden_reconfig.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_reconfig_entry(name):
+    """run_streams_fused (use_kernel=True: on CPU tensors the plain path)
+    on an entry of tests/data/torch_golden_reconfig.npz == the JAX
+    package's output and final state."""
+    from webrtc_aecm_tpu_torch import delay_estimator as tde
+    from webrtc_aecm_tpu_torch.parallel import batch as tbatch
+    gen = _reconfig_tool()
+    fs, n_chunks, burst, seed, with_clean, history, cap, cps = gen.RSF[name]
+    far, near, clean = gen.scene(fs, gen.B, n_chunks, seed, with_clean)
+    st = tbatch.create_batch(gen.B, fs, device="cpu")
+    dn, df = st.core.de_near, st.core.de_farend
+    if history != 100:
+        dn, df = tde.set_history_size(dn, df, history)
+    if cap > 1:
+        dn = dn._replace(
+            binary_history=torch.zeros((gen.B, cap), dtype=torch.int64),
+            lookahead=torch.arange(gen.B, dtype=torch.int32) % cap)
+    st = tf.to_fused_state(st._replace(core=st.core._replace(
+        de_near=dn, de_farend=df)))
+    fin, out = tf.run_streams_fused(st, far, near, fs,
+                                    gen.desync_ms(n_chunks, gen.B, burst),
+                                    clean=clean, chunks_per_step=cps)
+    with np.load(os.path.join(REPO, "tests", "data",
+                              "torch_golden_reconfig.npz")) as g:
+        np.testing.assert_array_equal(
+            out.numpy(), g[f"rsf.{name}.out"].astype(np.int32))
+        leaves = tree_leaves_with_path(convert.fused_state_to_numpy(fin))
+        for path, a in leaves:
+            b = g[f"rsf.{name}.state." + path]
+            assert a.dtype == b.dtype, path
+            np.testing.assert_array_equal(a, b, err_msg=path)
+
+
+@pytest.mark.parametrize("name,what", [
+    ("8k_cps5", "8 kHz"),
+    ("16k_h128_clean", "dual-input"),
+    ("16k_cps1_la4", "chunks_per_step=1"),
+    ("16k_cps3", "tail"),
 ])
-def test_out_of_scope_raises(kwargs, what):
-    """What the port still refuses says so, in each configuration that was
-    refused before it was ported: on the kernel path a step of more than 4
-    frames (5 block slots), and lookahead capacity > 1."""
-    kwargs = dict(kwargs)
-    n = kwargs.pop("n_samples", 640)
-    fs = kwargs.pop("sample_rate", FS)
-    st = tf.create_fused(2, fs, device="cpu")
-    match = "5 block slots"
-    if kwargs.pop("lookahead", False):
-        dn = st.core.de_near
-        st = st._replace(core=st.core._replace(de_near=dn._replace(
-            binary_history=torch.zeros((4, 2), dtype=torch.int64))))
-        match = "lookahead"
-    x = np.zeros((2, n), np.int16)
-    with pytest.raises(NotImplementedError, match=match):
-        tf.run_streams_fused(st, x, x, fs, **kwargs)
+def test_out_of_scope_raises(name, what):
+    """Each configuration the port once refused now runs on the kernel
+    path's entry point and gives the JAX package's answer: 5 chunks a step
+    at 8 kHz (7 block slots), a clean input (with a delay estimator of 128
+    rows), lookahead capacity 4 at one chunk a step, and 3 chunks a step
+    with a one-chunk tail."""
+    _run_reconfig_entry(name)
 
 
 def test_lookahead_capacity_above_one_raises():
-    st = tf.create_fused(2, FS, device="cpu")
-    dn = st.core.de_near
-    st = st._replace(core=st.core._replace(de_near=dn._replace(
-        binary_history=torch.zeros((4, 2), dtype=torch.int64))))
-    x = np.zeros((2, 640), np.int16)
-    with pytest.raises(NotImplementedError, match="lookahead"):
-        tf.run_streams_fused(st, x, x, FS)
+    """Lookahead capacity 4 with per-stream lookahead 0..3 at the default
+    step (2 chunks, the circular history) gives the JAX package's answer."""
+    _run_reconfig_entry("16k_la4")

@@ -107,7 +107,7 @@ _SIGNATURES = {
     "aecm_ring_multi_pass": [_VP] * 6 + [_CI] * 4,
     "aecm_ring_write": [_VP] * 5 + [_CL] + [_VP] * 2 + [_CI] * 3,
     "aecm_ring_read": [_VP] * 9 + [_CI] * 5,
-    "aecm_frames_step": [_VP, _CI] + [_VP] * 11 + [_CI] * 7,
+    "aecm_frames_step": [_VP, _CI] + [_VP] * 11 + [_CI] * 9,
 }
 _entry = {}          # C entry point -> its ctypes function, set at first use
 _raw_stream = None   # device index -> the current stream's handle (an int)
@@ -126,7 +126,7 @@ def load_library():
         fn.argtypes = argtypes + [_VP]
         fn.restype = _CI
         _entry[name] = fn
-    lib.aecm_frames_layout.argtypes = [_CI, _CI] + [ctypes.POINTER(_CI)] * 3
+    lib.aecm_frames_layout.argtypes = [_CI] * 5 + [ctypes.POINTER(_CI)] * 3
     lib.aecm_frames_layout.restype = _CI
     lib.aecm_error_string.argtypes = [_CI]
     lib.aecm_error_string.restype = ctypes.c_char_p

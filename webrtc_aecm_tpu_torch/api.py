@@ -3,8 +3,11 @@
 Two surfaces:
 
   * Functional: `control.create/buffer_farend/process/...` re-exported
-    here; state in, state out, on batches (leaves with a leading stream
-    axis; `parallel.batch.create_batch` makes one).
+    here; state in, state out, on one stream's state as `create` makes it
+    (the JAX package's sequence: create -> buffer_farend(s, far) ->
+    process(s, near, None, n, ms, fs) -> (s, out (n,), warning)), or on a
+    batch (leaves with a leading stream axis; `parallel.batch.create_batch`
+    makes one).
   * `AecmInstance`: a stateful handle mirroring the reference lifecycle
     Create/Init/BufferFarend/Process/set_config/GetEchoPath
     (aecm/echo_control_mobile.h:46-202), with the same error codes for

@@ -1,35 +1,45 @@
 // The frames kernel: the whole AECM core of one fused serving step, for
 // Hopper (sm_90a).  The device code, templated on the near input (single or
-// clean) and on the far history's order; frames.cu builds the single-input
-// instances and the C entry points, frames_clean.cu the clean ones, so that
-// the two compile at once.
+// clean), on the far history's order, and on general-or-main (below);
+// frames.cu builds the single-input instances and the C entry points,
+// frames_clean.cu the clean ones, so that the two compile at once.
 //
 // Replaces the TPU kernel _frames_kernel_call (webrtc_aecm_tpu/fused.py:
 // 1595, pallas_call :1708, body frames_step :1283 -> _process_block_f
-// :1037) in each of its modes: 1 to 4 frames a step (2 to 5 block slots),
-// a single or a clean near input (has_clean: a third forward transform per
-// block, the clean Q domains, the clean spectrum in the Wiener stage and in
-// comfort noise), abs_approx magnitudes, and the far history circular (the
-// step's new blocks go out to pend_hist / pend_q for the caller to append;
-// 4-frame steps only, the schedule that is whole blocks) or newest-first
-// (merged in place at the end of the step: fused.py _far_merge_deferred).
-// Plain version: webrtc_aecm_tpu_torch/fused.py `frames_step`; the
-// __device__ functions below carry the names of their counterparts there.
+// :1037) in each of its modes: any number of frames a step, a single or a
+// clean near input (has_clean: a third forward transform per block, the
+// clean Q domains, the clean spectrum in the Wiener stage and in comfort
+// noise), abs_approx magnitudes, a delay estimator of any history size and
+// lookahead capacity (taken from the leaf shapes, as the TPU kernel takes
+// them), and the far history circular (the step's new blocks go out to
+// pend_hist / pend_q for the caller to append; steps of whole blocks
+// dividing the 100-block history) or newest-first (merged in place at the
+// end of the step: fused.py _far_merge_deferred).  Plain version:
+// webrtc_aecm_tpu_torch/fused.py `frames_step`; the __device__ functions
+// below carry the names of their counterparts there.
 //
-// Bound on the card: integer operations, not bytes.  A step is about
-// 0.29 M integer operations per stream (three 128-point fixed-point FFTs,
-// the 100-entry delay search and the 65-bin NLMS / Wiener / comfort-noise
-// stages per block, 5 blocks per step; counted by stage in chip_smoke.py,
+// Two kinds of instance.  The main path's (history 100, capacity 1, at
+// most 5 block slots: 1 to 4 frames, circular at 4) fix their layout at
+// compile time.  The general ones take the delay estimator's sizes at
+// launch (Geo), run any number of slots in windows of 5, write each slot's
+// pending block and each frame's output to global memory as they are made,
+// and take as many streams a block as leave the most warps resident.
+//
+// Bound on the card: integer operations, not bytes.  A 5-slot step is
+// about 0.24 M integer operations per stream (three 128-point fixed-point
+// FFTs, the history-size delay search and the 65-bin NLMS / Wiener /
+// comfort-noise stages per block; counted by stage in chip_smoke.py,
 // FRAMES_OPS) against 22 KB of state and samples moved (the newest-first
 // history merge adds 32.8 KB).  What the design does about it:
 //
 //   * One warp per stream, G streams per thread block.  Lanes take bins:
 //     the 65-bin stages run as three passes of 32 lanes (bin 64 is the
-//     tail of the third), the 100 delay candidates and the 101 histogram
-//     entries as four.  Every branch on a per-stream scalar is uniform
-//     across the warp, so streams do not diverge from each other; the
-//     modes of a call (clean input, history order) are template parameters
-//     and abs_approx and the frame count are the same for every stream.
+//     tail of the third), the H delay candidates and the H + 1 histogram
+//     entries as ceil(H / 32) passes.  Every branch on a per-stream scalar
+//     is uniform across the warp, so streams do not diverge from each
+//     other; the modes of a call (clean input, history order, general) are
+//     template parameters and abs_approx and the frame count are the same
+//     for every stream.
 //   * The state is staged in shared memory once per launch.  The state
 //     keeps the lane-major (rows, B) layout, so the G adjacent streams of a
 //     block give 4 G contiguous bytes per row; the block loads and stores
@@ -38,7 +48,7 @@
 //     far_history / far_q_domains stay in global memory (one block of 40
 //     rows is fetched per slot), as do the sample inputs, which each slot
 //     fetches for the slot after it.  A clean input takes 2 KB more a
-//     stream, so its instances run 4 streams a block.
+//     stream, so its main instances run 4 streams a block.
 //   * One-row leaves are read from the staged copy into registers once,
 //     carried through the slots, and written back once.
 //   * The FFTs run in the stream's shared memory, two butterflies per lane
@@ -47,11 +57,13 @@
 //     forward transforms run together, butterfly by butterfly.  The
 //     inverse transform's per-stage maximum is a warp reduction over the
 //     values each lane wrote in the stage before.
-//   * Histories are not shifted.  Each of the five one-row-per-block
-//     histories is staged with N_SLOTS words of head room; slot a writes
+//   * Histories are not shifted.  Each of the one-row-per-block histories
+//     is staged with N_SLOTS words of head room; slot a of a window writes
 //     its new row at head room position 4 - a, and the store copies the
-//     window that starts n_act rows before the loaded one.  The
-//     newest-first far history is shifted once, by the whole block, in
+//     view that starts as many rows before the loaded one as the last
+//     window's active slots.  Between two windows (general instances) each
+//     history moves back by N_SLOTS words, which resets its head room.
+//     The newest-first far history is shifted once, by the whole block, in
 //     descending chunks of rows: row r of a stream takes row r - 40 n_act
 //     of the same stream, so each chunk is read, the block syncs, and the
 //     chunk is written.
@@ -106,6 +118,17 @@ struct Leaves {
   void* p[N_LEAVES];
 };
 
+// Where a stream's delay-estimator rows stand in its shared region, and
+// their sizes: fixed in the main path's instances, from the leaf shapes in
+// the general ones.
+struct Geo {
+  int H;         // history size: far-end histories and bit counts H rows,
+                 // mean bit counts and histogram H + 1
+  int cap;       // lookahead capacity: near binary history rows
+  int fe_hist, fe_bc, ne_bc, ne_mbc, ne_hist, ne_bh;   // word offsets
+  int words;     // a stream's region
+};
+
 struct Inputs {
   const int* far;        // (n_frames * 80, B) far frames
   const int* noisy;      // (n_frames * 80, B) near frames
@@ -116,16 +139,19 @@ struct Inputs {
   const int* fwr;        // (7, 128) per-stage per-row twiddles
   const int* fws;        // (7, 128)
   int* out;              // (n_frames * 80, B)
-  int* pend_hist;        // (5 * 40, B), circular history only
-  int* pend_q;           // (5, B), circular history only
+  int* pend_hist;        // (n_slots * 40, B): the circular history's output,
+  int* pend_q;           // (n_slots, B)       and the general instances' store
   int B, head, mult, fpc, n_frames, abs_approx;
+  Geo geo;               // the general instances' layout
+  int lg;                // log2 of the general instances' streams a block
 };
 
 // The clean instances (frames_clean.cu), called from frames.cu.
-int frames_launch_clean(bool circular, const Leaves& lv, const Inputs& in,
-                        cudaStream_t stream);
-int frames_layout_clean(bool circular, int* streams_per_block,
-                        int* smem_bytes, int* blocks_per_sm);
+int frames_launch_clean(bool circular, bool general, const Leaves& lv,
+                        Inputs in, cudaStream_t stream);
+int frames_layout_clean(bool circular, bool general, int H, int cap,
+                        int* streams_per_block, int* smem_bytes,
+                        int* blocks_per_sm);
 
 namespace {
 
@@ -134,8 +160,8 @@ constexpr int PART_LEN1 = 65;
 constexpr int FRAME_LEN = 80;
 constexpr int MAX_DELAY = 100;
 constexpr int FAR_HIST_ROWS = 40;
-constexpr int N_FRAMES = 4;            // the widest step, and the circular one
-constexpr int N_SLOTS = 5;             // (4*80 + 48) / 64
+constexpr int N_FRAMES = 4;            // the main instances' widest step
+constexpr int N_SLOTS = 5;             // (4*80 + 48) / 64, staged at once
 constexpr int STEP_LEN = N_FRAMES * FRAME_LEN;
 constexpr int ONE_Q14 = 1 << 14;
 constexpr float Q14_SCALING = 1.0f / 16384.0f;
@@ -148,7 +174,8 @@ constexpr int MEAN_LO = 12;            // the binary spectrum uses bins 12..43
 // ---------------------------------------------------------------------------
 
 // Word offsets inside a stream's region.  A sliding history (see the
-// header) has N_SLOTS words of head room in front of its rows.
+// header) has N_SLOTS words of head room in front of its rows.  The delay
+// estimator's rows follow the fixed part (Geo).
 enum Off {
   O_X_BUF = 0,
   O_D_BUF = O_X_BUF + 128,
@@ -157,14 +184,9 @@ enum Off {
   O_CARRY_NOISY = O_CARRY_FAR + PART_LEN,
   O_OUT_CARRY = O_CARRY_NOISY + PART_LEN,
   O_OUT_TAIL = O_OUT_CARRY + PART_LEN,
-  O_FE_HIST = O_OUT_TAIL + 16,                  // sliding, low words
-  O_FE_BC = O_FE_HIST + N_SLOTS + MAX_DELAY,    // sliding
-  O_FE_MEAN = O_FE_BC + N_SLOTS + MAX_DELAY,    // rows 12..43
+  O_FE_MEAN = O_OUT_TAIL + 16,                  // rows 12..43
   O_NE_MEAN = O_FE_MEAN + 32,                   // rows 12..43
-  O_NE_BC = O_NE_MEAN + 32,
-  O_NE_MBC = O_NE_BC + MAX_DELAY,
-  O_NE_HIST = O_NE_MBC + MAX_DELAY + 1,         // float bits
-  O_NLE = O_NE_HIST + MAX_DELAY + 1,            // sliding
+  O_NLE = O_NE_MEAN + 32,                       // sliding
   O_EALE = O_NLE + N_SLOTS + PART_LEN,          // sliding
   O_ESLE = O_EALE + N_SLOTS + PART_LEN,         // sliding
   O_CH_STORED = O_ESLE + N_SLOTS + PART_LEN,
@@ -177,14 +199,15 @@ enum Off {
   O_TOO_HIGH = O_TOO_LOW + PART_LEN1,
   O_SCAL = O_TOO_HIGH + PART_LEN1,              // one-row leaves, by Leaf
   O_N_ACT = O_SCAL + N_LEAVES,                  // active slots of this step
+  O_N_SLIDE = O_N_ACT + 1,                      // ... in its last window
   // working arrays and staged outputs
-  O_PEND = O_N_ACT + 1,                         // the step's 5 far blocks
+  O_PEND = O_N_SLIDE + 1,                       // far blocks of 5 slots
   O_PEND_Q = O_PEND + N_SLOTS * FAR_HIST_ROWS,
   O_FR = O_PEND_Q + N_SLOTS,
   O_FI = O_FR + 128,
   O_XFA = O_FI + 128,
   O_DFA = O_XFA + PART_LEN1,
-  O_OUTS = O_DFA + PART_LEN1,                   // each slot's 64 samples
+  O_OUTS = O_DFA + PART_LEN1,                   // 64 samples of 5 slots
   O_EMIT = O_OUTS + N_SLOTS * PART_LEN,         // the step's outputs
   O_END = O_EMIT + STEP_LEN,
   // the clean input's leaves and arrays, in the clean layout only
@@ -195,63 +218,86 @@ enum Off {
   O_END_CLEAN = O_FFT3 + 256
 };
 // Forward transform t works at fft_re(t) (re) and fft_re(t) + 128 (im).
-// The second works in the emit staging, which is not written before the
-// step's last slot is done.
+// The second works in the emit staging, which the main path's instances
+// write only after the step's last slot and the general ones never.
 __device__ __forceinline__ constexpr int fft_re(int t) {
   return t == 0 ? O_FR : (t == 1 ? O_EMIT : O_FFT3);
 }
 static_assert(O_FI == O_FR + 128, "a transform's im follows its re");
 static_assert(2 * 128 <= STEP_LEN, "the second transform fits the staging");
 constexpr int TABLE_WORDS = 2 * 7 * 128 + 128;  // fwr, fws, win128
+// The most shared memory a thread block may take (sm_90).
+constexpr int SMEM_LIMIT = 232448;
 
-// The launch shape of an instance.  A stride of 4 mod 32 words spreads the
-// cooperative load's G streams x 4 rows over all 32 banks.  The clean
-// layout's 3,652 words a stream take 4 streams a block, 3 blocks an SM.
+// A stream's region at history size H and lookahead capacity cap: the
+// fixed part, then the two sliding far-end histories, the near bit counts,
+// mean bit counts and histogram, and (general instances only: the main
+// path's capacity-1 row rides in a register) the sliding near binary
+// history.  A stride of 4 mod 32 words spreads the cooperative load's G
+// streams x 4 rows over all 32 banks.
+__host__ __device__ constexpr Geo make_geo(bool clean, bool general, int H,
+                                           int cap) {
+  const int fe_hist = clean ? (int)O_END_CLEAN : (int)O_END;
+  const int fe_bc = fe_hist + N_SLOTS + H;
+  const int ne_bc = fe_bc + N_SLOTS + H;
+  const int ne_mbc = ne_bc + H;
+  const int ne_hist = ne_mbc + H + 1;
+  const int ne_bh = ne_hist + H + 1;
+  const int end = ne_bh + (general ? N_SLOTS + cap : 0);
+  return Geo{H, cap, fe_hist, fe_bc, ne_bc, ne_mbc, ne_hist, ne_bh,
+             ((end - 4 + 31) / 32) * 32 + 4};
+}
+
+// The launch shape of the main path's instances (history 100, capacity
+// 1): the clean layout's 3,652 words a stream take 4 streams a block, 3
+// blocks an SM.  The general instances take up to G streams a block, as
+// many as leave the most warps resident (frames_shape).
 template <bool CLEAN>
 struct Layout {
-  static constexpr int G = CLEAN ? 4 : 8;      // streams (= warps) a block
+  static constexpr int LG = CLEAN ? 2 : 3;
+  static constexpr int G = 1 << LG;            // streams (= warps) a block
   static constexpr int THREADS = 32 * G;
   static constexpr int MIN_BLOCKS = CLEAN ? 3 : 2;
-  static constexpr int STREAM_WORDS =
-      (((CLEAN ? O_END_CLEAN : O_END) - 4 + 31) / 32) * 32 + 4;
+  static constexpr Geo GEO = make_geo(CLEAN, false, 100, 1);
+  static constexpr int STREAM_WORDS = GEO.words;
   static constexpr int SMEM_BYTES = (TABLE_WORDS + G * STREAM_WORDS) * 4;
 };
+static_assert(Layout<false>::SMEM_BYTES == 108160,
+              "the main path's single-input layout");
+static_assert(Layout<true>::SMEM_BYTES == 66112,
+              "the main path's clean layout");
 
-// A leaf with rows, staged at `off`: rows [row0, row0 + rows) of it.
+// A leaf with rows, staged at `off`: rows [row0, row0 + rows) of it.  The
+// delay estimator's leaves, whose rows and offsets are the Geo's, are
+// staged apart (de_leaves).
 struct RowLeaf {
   short leaf, row0, rows, off;
   bool slide;   // a sliding history
-  bool wide;    // int64 in global memory, the low word staged
 };
 __constant__ RowLeaf kRowLeaves[] = {
-    {X_BUF, 0, 128, O_X_BUF, false, false},
-    {D_BUF_NOISY, 0, 128, O_D_BUF, false, false},
-    {OUT_BUF, 0, PART_LEN, O_OUT_BUF, false, false},
-    {IN_CARRY_FAR, 0, PART_LEN, O_CARRY_FAR, false, false},
-    {IN_CARRY_NOISY, 0, PART_LEN, O_CARRY_NOISY, false, false},
-    {OUT_CARRY, 0, PART_LEN, O_OUT_CARRY, false, false},
-    {OUT_TAIL, 0, 16, O_OUT_TAIL, false, false},
-    {FE_BINARY_HISTORY, 0, MAX_DELAY, O_FE_HIST, true, true},
-    {FE_BIT_COUNTS, 0, MAX_DELAY, O_FE_BC, true, false},
-    {FE_MEAN_SPECTRUM, MEAN_LO, 32, O_FE_MEAN, false, false},
-    {NE_MEAN_SPECTRUM, MEAN_LO, 32, O_NE_MEAN, false, false},
-    {NE_BIT_COUNTS, 0, MAX_DELAY, O_NE_BC, false, false},
-    {NE_MEAN_BIT_COUNTS, 0, MAX_DELAY + 1, O_NE_MBC, false, false},
-    {NE_HISTOGRAM, 0, MAX_DELAY + 1, O_NE_HIST, false, false},
-    {NEAR_LOG_ENERGY, 0, PART_LEN, O_NLE, true, false},
-    {ECHO_ADAPT_LOG_ENERGY, 0, PART_LEN, O_EALE, true, false},
-    {ECHO_STORED_LOG_ENERGY, 0, PART_LEN, O_ESLE, true, false},
-    {CHANNEL_STORED, 0, PART_LEN1, O_CH_STORED, false, false},
-    {CHANNEL_ADAPT16, 0, PART_LEN1, O_CH16, false, false},
-    {CHANNEL_ADAPT32, 0, PART_LEN1, O_CH32, false, false},
-    {ECHO_FILT, 0, PART_LEN1, O_ECHO_FILT, false, false},
-    {NEAR_FILT, 0, PART_LEN1, O_NEAR_FILT, false, false},
-    {NOISE_EST, 0, PART_LEN1, O_NOISE, false, false},
-    {NOISE_EST_TOO_LOW_CTR, 0, PART_LEN1, O_TOO_LOW, false, false},
-    {NOISE_EST_TOO_HIGH_CTR, 0, PART_LEN1, O_TOO_HIGH, false, false},
+    {X_BUF, 0, 128, O_X_BUF, false},
+    {D_BUF_NOISY, 0, 128, O_D_BUF, false},
+    {OUT_BUF, 0, PART_LEN, O_OUT_BUF, false},
+    {IN_CARRY_FAR, 0, PART_LEN, O_CARRY_FAR, false},
+    {IN_CARRY_NOISY, 0, PART_LEN, O_CARRY_NOISY, false},
+    {OUT_CARRY, 0, PART_LEN, O_OUT_CARRY, false},
+    {OUT_TAIL, 0, 16, O_OUT_TAIL, false},
+    {FE_MEAN_SPECTRUM, MEAN_LO, 32, O_FE_MEAN, false},
+    {NE_MEAN_SPECTRUM, MEAN_LO, 32, O_NE_MEAN, false},
+    {NEAR_LOG_ENERGY, 0, PART_LEN, O_NLE, true},
+    {ECHO_ADAPT_LOG_ENERGY, 0, PART_LEN, O_EALE, true},
+    {ECHO_STORED_LOG_ENERGY, 0, PART_LEN, O_ESLE, true},
+    {CHANNEL_STORED, 0, PART_LEN1, O_CH_STORED, false},
+    {CHANNEL_ADAPT16, 0, PART_LEN1, O_CH16, false},
+    {CHANNEL_ADAPT32, 0, PART_LEN1, O_CH32, false},
+    {ECHO_FILT, 0, PART_LEN1, O_ECHO_FILT, false},
+    {NEAR_FILT, 0, PART_LEN1, O_NEAR_FILT, false},
+    {NOISE_EST, 0, PART_LEN1, O_NOISE, false},
+    {NOISE_EST_TOO_LOW_CTR, 0, PART_LEN1, O_TOO_LOW, false},
+    {NOISE_EST_TOO_HIGH_CTR, 0, PART_LEN1, O_TOO_HIGH, false},
     // the clean input's, staged by the clean instances only
-    {D_BUF_CLEAN, 0, 128, O_D_BUF_CLEAN, false, false},
-    {IN_CARRY_CLEAN, 0, PART_LEN, O_CARRY_CLEAN, false, false},
+    {D_BUF_CLEAN, 0, 128, O_D_BUF_CLEAN, false},
+    {IN_CARRY_CLEAN, 0, PART_LEN, O_CARRY_CLEAN, false},
 };
 // the single-input instances stage all but the last two
 constexpr int N_ROW_LEAVES = sizeof(kRowLeaves) / sizeof(RowLeaf);
@@ -315,6 +361,9 @@ struct Ctx {
   const Leaves& lv;
   const Inputs& in;
   int b, lane;
+  Geo g;            // the delay estimator's rows (constants in the main
+                    // path's instances)
+  int lookahead;    // the stream's lookahead (general instances)
 };
 
 __device__ __forceinline__ int warp_max(int v) {
@@ -487,8 +536,7 @@ __device__ void _time_to_frequency_domain_f(const Ctx& c, const int (*xv)[4],
 }
 
 // ---------------------------------------------------------------------------
-// Delay estimator (fused.py _binary_spectrum_fix_f ... _process_fix_f),
-// lookahead capacity 1
+// Delay estimator (fused.py _binary_spectrum_fix_f ... _process_fix_f)
 // ---------------------------------------------------------------------------
 
 // Lane l takes bin 12 + l; `spectrum` is a 65-bin array in shared memory,
@@ -514,25 +562,39 @@ __device__ __forceinline__ bool in_range(int idx, int n) {
 }
 
 // delay_estimator.process_binary_spectrum; returns the new last_delay.
-// Row r of the far-end histories stands at word `base + r`.
+// Row r of the far-end histories (and of the near binary history, in the
+// general instances) stands at word `base + r` of its region.  The history
+// size is c.g.H: 100 in the main path's instances, where the four passes
+// of 32 lanes unroll.
+template <bool GEN>
 __device__ int _process_binary_spectrum_f(const Ctx& c, Scal& sc,
                                           uint32_t bits, int base) {
   int* S = c.S;
-  sc.ne_binary_history = (int)bits;
+  const Geo& g = c.g;
+  if (GEN) {
+    // the near binary history shifts in this block's bits; the row at the
+    // stream's lookahead, clamped to the capacity, is compared
+    if (c.lane == 0) S[g.ne_bh + base] = (int)bits;
+    __syncwarp();
+    bits = (uint32_t)S[g.ne_bh + base + min(max(c.lookahead, 0), g.cap - 1)];
+  } else {
+    sc.ne_binary_history = (int)bits;
+  }
   int best = 0x7FFFFFFF, best_r = 0x7FFFFFFF, worst = (int)0x80000000;
   bool stirred = false;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
+  const int passes = (g.H + 31) / 32;
+#pragma unroll 4
+  for (int j = 0; j < passes; ++j) {
     const int r = c.lane + 32 * j;
-    if (r < MAX_DELAY) {
-      const int bc = __popc(bits ^ (uint32_t)S[O_FE_HIST + base + r]);
-      S[O_NE_BC + r] = bc;
-      const int fbc = S[O_FE_BC + base + r];
-      int mean = S[O_NE_MBC + r];
+    if (r < g.H) {
+      const int bc = __popc(bits ^ (uint32_t)S[g.fe_hist + base + r]);
+      S[g.ne_bc + r] = bc;
+      const int fbc = S[g.fe_bc + base + r];
+      int mean = S[g.ne_mbc + r];
       if (fbc > 0) {
         const int shifts = 13 - ((3 * fbc) >> 4);
         mean = mean_estimator_fix(bc << 9, shifts, mean);
-        S[O_NE_MBC + r] = mean;
+        S[g.ne_mbc + r] = mean;
         stirred = true;
       }
       if (mean < best) {   // ascending r: the lane's lowest index wins
@@ -569,25 +631,26 @@ __device__ int _process_binary_spectrum_f(const Ctx& c, Scal& sc,
   const int last_delay = sc.last_delay;
   const int compare_delay = sc.compare_delay;
   const float valley_f = (float)valley_depth * Q14_SCALING;
-  float* hist = (float*)(S + O_NE_HIST);
+  float* hist = (float*)(S + g.ne_hist);
   if (non_stationary) {
     const int max_hits = candidate < last_delay ? 10 : 1000;
     const int cand_hits =
         (candidate != sc.last_candidate_delay ? 0 : sc.candidate_hits) + 1;
     float dls = valley_f;
     if (cand_hits < max_hits) {
-      const int sel = in_range(compare_delay, MAX_DELAY + 1)
-                          ? S[O_NE_MBC + compare_delay]
+      const int sel = in_range(compare_delay, g.H + 1)
+                          ? S[g.ne_mbc + compare_delay]
                           : 0;
       dls = (float)(sel - value_best) * Q14_SCALING;
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    const int hist_passes = (g.H + 1 + 31) / 32;
+#pragma unroll 4
+    for (int j = 0; j < hist_passes; ++j) {
       const int i = c.lane + 32 * j;
-      if (i <= MAX_DELAY) {
+      if (i <= g.H) {
         float h = hist[i];
         if (i == candidate) h = fminf(h + valley_f, 3000.0f);
-        if (i < MAX_DELAY) {
+        if (i < g.H) {
           const bool in_last = i >= last_delay - 2 && i <= last_delay + 1 &&
                                i != candidate;
           const bool in_cand = i >= candidate - 2 && i <= candidate + 1;
@@ -605,7 +668,7 @@ __device__ int _process_binary_spectrum_f(const Ctx& c, Scal& sc,
 
   // --- histogram-based + robust validation (runtime toggle) ---
   const float hist_cand =
-      in_range(candidate, MAX_DELAY + 1) ? hist[candidate] : 0.0f;
+      in_range(candidate, g.H + 1) ? hist[candidate] : 0.0f;
   const float delay_difference = (float)(candidate - last_delay);
   const float allowed = (float)sc.allowed_offset;
   float fraction = 1.0f;
@@ -614,7 +677,7 @@ __device__ int _process_binary_spectrum_f(const Ctx& c, Scal& sc,
   } else if (delay_difference < 0.0f) {
     fraction = fminf(0.25f - 0.05f * delay_difference, 1.0f);
   }
-  const float hist_compare = in_range(compare_delay, MAX_DELAY + 1)
+  const float hist_compare = in_range(compare_delay, g.H + 1)
                                  ? hist[compare_delay]
                                  : 0.0f;
   const float h_threshold = fmaxf(hist_compare * fraction, 1.5f);
@@ -632,7 +695,7 @@ __device__ int _process_binary_spectrum_f(const Ctx& c, Scal& sc,
   __syncwarp();   // every lane has read the histogram before it is patched
   if (changed) {
     sc.last_delay_histogram = __float_as_int(fminf(hist_cand, 250.0f));
-    if (in_range(compare_delay, MAX_DELAY + 1) && hist_cand < hist_compare &&
+    if (in_range(compare_delay, g.H + 1) && hist_cand < hist_compare &&
         c.lane == 0) {
       hist[compare_delay] = hist_cand;
     }
@@ -986,7 +1049,7 @@ __device__ void _comfort_noise_f(const Ctx& c, int i, int dfa_i, int lam,
 }
 
 // core.inverse_fft_and_window on this lane's bins of efw: writes the 64
-// output samples of slot s to O_OUTS and the overlap to O_OUT_BUF.
+// output samples to ring entry `s` of O_OUTS and the overlap to O_OUT_BUF.
 __device__ void _inverse_fft_and_window_f(const Ctx& c, const Scal& sc,
                                           const int* efw_re,
                                           const int* efw_im, int s) {
@@ -1050,9 +1113,13 @@ __device__ __forceinline__ int stream_sample(const Ctx& c, int carry_off,
   return payload[(size_t)((n - k) * FRAME_LEN + j) * c.in.B + c.b];
 }
 
-// Pack the 65-bin block in O_XFA into the 40 rows of slot s of O_PEND.
-__device__ void _push_far_pending(const Ctx& c, int s, int far_q) {
+// Pack the 65-bin block in O_XFA into the 40 rows of ring entry `ring` of
+// O_PEND (slot s); the general instances also write it to slot s of
+// pend_hist / pend_q.
+template <bool GEN>
+__device__ void _push_far_pending(const Ctx& c, int s, int ring, int far_q) {
   int* S = c.S;
+  const size_t B = (size_t)c.in.B;
   __syncwarp();   // O_XFA is complete
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
@@ -1062,10 +1129,17 @@ __device__ void _push_far_pending(const Ctx& c, int s, int far_q) {
       const uint32_t hi = r + FAR_HIST_ROWS < PART_LEN1
                               ? (uint32_t)S[O_XFA + r + FAR_HIST_ROWS]
                               : 0u;
-      S[O_PEND + s * FAR_HIST_ROWS + r] = (int)(lo | (hi << 16));
+      S[O_PEND + ring * FAR_HIST_ROWS + r] = (int)(lo | (hi << 16));
+      if (GEN) {
+        c.in.pend_hist[(size_t)(s * FAR_HIST_ROWS + r) * B + c.b] =
+            (int)(lo | (hi << 16));
+      }
     }
   }
-  if (c.lane == 0) S[O_PEND_Q + s] = far_q;
+  if (c.lane == 0) {
+    S[O_PEND_Q + ring] = far_q;
+    if (GEN) c.in.pend_q[(size_t)s * B + c.b] = far_q;
+  }
   __syncwarp();   // the aligned fetch may read this block back
 }
 
@@ -1144,22 +1218,40 @@ __device__ __forceinline__ SlotIn fetch_slot(const Ctx& c, const Scal& sc,
 
 // AlignedFarend against the deferred view (slot s has s pending
 // predecessors plus its own block): fills this lane's bins of far_spec,
-// returns the block's Q domain.  A block of the history comes from the
-// slot's early fetch if the delay is the one it guessed.
-template <bool CIRC>
+// returns the block's Q domain.  A pending block is in the O_PEND ring if
+// it is one of the last N_SLOTS, else (general instances) in pend_hist; a
+// block of the history comes from the slot's early fetch if the delay is
+// the one it guessed.
+template <bool CIRC, bool GEN>
 __device__ int _aligned_farend_deferred(const Ctx& c, int s, int delay,
                                         const SlotIn& x, int* far_spec) {
   int words[3] = {0, 0, 0};
   int far_q = 0;
   if (delay >= 0 && delay <= s) {
-    const int* rows = c.S + O_PEND + (s - delay) * FAR_HIST_ROWS;
+    const int p = s - delay;
+    if (!GEN || delay < N_SLOTS) {
+      const int ring = GEN ? p % N_SLOTS : p;
+      const int* rows = c.S + O_PEND + ring * FAR_HIST_ROWS;
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int i = c.lane + 32 * j;
-      const int row = i >= FAR_HIST_ROWS ? i - FAR_HIST_ROWS : i;
-      words[j] = i < PART_LEN1 ? rows[row] : 0;
+      for (int j = 0; j < 3; ++j) {
+        const int i = c.lane + 32 * j;
+        const int row = i >= FAR_HIST_ROWS ? i - FAR_HIST_ROWS : i;
+        words[j] = i < PART_LEN1 ? rows[row] : 0;
+      }
+      far_q = c.S[O_PEND_Q + ring];
+    } else {
+      const size_t B = (size_t)c.in.B;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const int i = c.lane + 32 * j;
+        const int row = i >= FAR_HIST_ROWS ? i - FAR_HIST_ROWS : i;
+        words[j] = i < PART_LEN1
+                       ? c.in.pend_hist[(size_t)(p * FAR_HIST_ROWS + row) * B +
+                                        c.b]
+                       : 0;
+      }
+      far_q = c.in.pend_q[(size_t)p * B + c.b];
     }
-    far_q = c.S[O_PEND_Q + s - delay];
   } else if (delay == x.hist_delay) {
 #pragma unroll
     for (int j = 0; j < 3; ++j) words[j] = x.hist[j];
@@ -1182,11 +1274,14 @@ __device__ int _aligned_farend_deferred(const Ctx& c, int s, int delay,
 // the slot's stream samples (the plain version computes and discards the
 // whole block; only this part of it is visible in the outputs); the
 // newest-first merge never takes it.
-template <bool CIRC>
-__device__ void _inactive_slot(const Ctx& c, int s, const SlotIn& x) {
+template <bool CIRC, bool GEN>
+__device__ void _inactive_slot(const Ctx& c, int s, int ring,
+                               const SlotIn& x) {
   int* S = c.S;
 #pragma unroll
-  for (int j = 0; j < 2; ++j) S[O_OUTS + s * PART_LEN + c.lane + 32 * j] = 0;
+  for (int j = 0; j < 2; ++j) {
+    S[O_OUTS + ring * PART_LEN + c.lane + 32 * j] = 0;
+  }
   if (!CIRC) return;
   int xv[1][4], mag[1][3], far_q;
   uint32_t sum;
@@ -1202,16 +1297,17 @@ __device__ void _inactive_slot(const Ctx& c, int s, const SlotIn& x) {
     const int i = c.lane + 32 * j;
     if (i < PART_LEN1) S[O_XFA + i] = mag[0][j];
   }
-  _push_far_pending(c, s, far_q);
+  _push_far_pending<GEN>(c, s, ring, far_q);
 }
 
-// core.process_block for slot s (an active slot; the s-th active one).
-template <bool CLEAN, bool CIRC>
-__device__ void _process_block_f(const Ctx& c, Scal& sc, int s,
-                                 const SlotIn& x) {
+// core.process_block for slot s (an active slot; the s-th active one),
+// whose outputs and pending block go to ring entry `ring`; the sliding
+// histories' new row 0 is at word `base` of their regions.
+template <bool CLEAN, bool CIRC, bool GEN>
+__device__ void _process_block_f(const Ctx& c, Scal& sc, int s, int ring,
+                                 int base, const SlotIn& x) {
   int* S = c.S;
   const int lane = c.lane;
-  const int base = N_SLOTS - 1 - s;   // row 0 of the sliding histories
   if (sc.startup_state < 2) {
     const int tc = sc.tot_count;
     sc.startup_state = (tc >= 512) + (tc >= 1024);
@@ -1274,24 +1370,24 @@ __device__ void _process_block_f(const Ctx& c, Scal& sc, int s,
     sc.dfa_clean_q = zeros_d;
   }
 
-  _push_far_pending(c, s, far_q);   // also orders O_XFA / O_DFA
+  _push_far_pending<GEN>(c, s, ring, far_q);   // also orders O_XFA / O_DFA
   // _add_far_spectrum_fix_f: the new row 0 of the far-end histories
   const uint32_t far_bits = _binary_spectrum_fix_f(
       c, S + O_XFA, S + O_FE_MEAN, sc.fe_spectrum_initialized, far_q);
   if (lane == 0) {
-    S[O_FE_HIST + base] = (int)far_bits;
-    S[O_FE_BC + base] = __popc(far_bits);
+    S[c.g.fe_hist + base] = (int)far_bits;
+    S[c.g.fe_bc + base] = __popc(far_bits);
   }
   const uint32_t near_bits = _binary_spectrum_fix_f(
       c, S + O_DFA, S + O_NE_MEAN, sc.ne_spectrum_initialized, zeros_d);
   __syncwarp();   // row 0 is visible to the search
-  int delay = _process_binary_spectrum_f(c, sc, near_bits, base);
+  int delay = _process_binary_spectrum_f<GEN>(c, sc, near_bits, base);
   if (delay == -2) delay = 0;
   if (sc.fixed_delay >= 0) delay = sc.fixed_delay;
 
   int far_spec[3], echo_est[3], hnl[3];
   const int zeros_x_buf =
-      _aligned_farend_deferred<CIRC>(c, s, delay, x, far_spec);
+      _aligned_farend_deferred<CIRC, GEN>(c, s, delay, x, far_spec);
   const Energies e = _calc_energies_f(c, sc, far_spec, zeros_x_buf, dfa_sum,
                                       echo_est, base);
   const int mu = _calc_step_size_f(sc);
@@ -1423,16 +1519,116 @@ __device__ void _process_block_f(const Ctx& c, Scal& sc, int s,
                        shift_noise, min_track_shift, efw_re[jb], efw_im[jb]);
     }
   }
-  _inverse_fft_and_window_f(c, sc, efw_re, efw_im, s);
+  _inverse_fft_and_window_f(c, sc, efw_re, efw_im, ring);
 }
 
+// Sample i of slot `slot`'s 64 outputs (0 beyond the step's slots); the
+// general instances keep the last N_SLOTS slots in a ring.
+template <bool GEN>
 __device__ __forceinline__ int slot_sample(const int* S, int slot,
                                            int n_slots, int i) {
-  return (slot >= 0 && slot < n_slots) ? S[O_OUTS + slot * PART_LEN + i] : 0;
+  if (slot < 0 || slot >= n_slots) return 0;
+  return S[O_OUTS + (GEN ? slot % N_SLOTS : slot) * PART_LEN + i];
 }
 
-// One stream's step, by one warp, on its staged state.
-template <bool CLEAN, bool CIRC>
+// The slot after which frame f's output can be made: the last of the one
+// or two blocks it takes.
+__device__ __forceinline__ int frame_last_slot(int f, bool run_f, int fill0,
+                                               int k, int n) {
+  const int j_f = max(k - (n - f), 0);
+  const bool two = (((fill0 + 16 * j_f) & 63) >= 48) && run_f;
+  return ((fill0 + FRAME_LEN * j_f) >> 6) + (two ? 1 : 0);
+}
+
+// Frame f's output attribution and its 80-sample emit (fused.py
+// _emit_frame_f): to the O_EMIT staging, or straight to `out` in the
+// general instances.
+template <bool GEN>
+__device__ void _emit_frame_f(const Ctx& c, Scal& sc, int f, bool run_f,
+                              int fill0, int k, int n, int n_slots) {
+  int* S = c.S;
+  const int lane = c.lane;
+  const int j_f = max(k - (n - f), 0);
+  const bool two = (((fill0 + 16 * j_f) & 63) >= 48) && run_f;
+  const int b_f = (fill0 + FRAME_LEN * j_f) >> 6;
+  const int o = sc.out_fill;
+  const int osel = o >> 4;
+  const int fo = 16 * osel;
+  // sample i of the frame's 192-sample work window: the out-carry up to
+  // its fill, then the frame's one or two blocks, zeros after
+  auto wo = [&](int i) -> int {
+    if (osel < 0 || osel > 3) return 0;
+    if (i < fo) return S[O_OUT_CARRY + i];
+    const int pi = i - fo;
+    if (pi >= 2 * PART_LEN) return 0;
+    if (pi < PART_LEN) return slot_sample<GEN>(S, b_f, n_slots, pi);
+    return two ? slot_sample<GEN>(S, b_f + 1, n_slots, pi - PART_LEN) : 0;
+  };
+  const int avail = o + (1 + (two ? 1 : 0)) * PART_LEN;
+  const int stuff = max(0, FRAME_LEN - avail);
+  const bool stuffed = stuff > 0;
+  int out_f[3], carry[2];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int i = lane + 32 * j;
+    out_f[j] = 0;
+    if (i < FRAME_LEN) {
+      out_f[j] = stuffed ? (i < 16 ? S[O_OUT_TAIL + i] : wo(i - 16)) : wo(i);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = lane + 32 * j;
+    carry[j] = stuffed ? wo(64 + i) : wo(FRAME_LEN + i);
+  }
+  __syncwarp();   // the old carry and tail have been read
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const int i = lane + 32 * j;
+    if (i < FRAME_LEN) {
+      if (GEN) {
+        c.in.out[(size_t)(f * FRAME_LEN + i) * c.in.B + c.b] = out_f[j];
+      } else {
+        S[O_EMIT + f * FRAME_LEN + i] = out_f[j];
+      }
+    }
+  }
+  if (run_f) {
+    S[O_OUT_CARRY + lane] = carry[0];
+    S[O_OUT_CARRY + 32 + lane] = carry[1];
+    sc.out_fill = avail + stuff - FRAME_LEN;
+    if (lane < 16) S[O_OUT_TAIL + lane] = out_f[2];   // out_f[64 + lane]
+  }
+  __syncwarp();
+}
+
+// The general instances' window change: the sliding histories have taken
+// N_SLOTS new rows, their head room is used up, so each moves its rows
+// back by N_SLOTS words, top down in chunks of 32 (a chunk's writes reach
+// only words its own reads have passed).
+__device__ void slide_reset(const Ctx& c) {
+  const Geo& g = c.g;
+  const int offs[6] = {g.fe_hist, g.fe_bc, O_NLE, O_EALE, O_ESLE, g.ne_bh};
+  const int rows[6] = {g.H, g.H, PART_LEN, PART_LEN, PART_LEN, g.cap};
+#pragma unroll
+  for (int q = 0; q < 6; ++q) {
+    int* base = c.S + offs[q];
+    for (int top = rows[q]; top > 0; top -= 32) {
+      const int r = top - 32 + c.lane;
+      const int v = r >= 0 ? base[r] : 0;
+      __syncwarp();
+      if (r >= 0) base[r + N_SLOTS] = v;
+      __syncwarp();
+    }
+  }
+}
+
+// One stream's step, by one warp, on its staged state.  The main path's
+// instances run at most N_SLOTS slots (4 frames) and emit at the end; the
+// general ones run any number in windows of N_SLOTS, resetting the sliding
+// histories' head room between windows, and emit each frame as soon as
+// its slots are done.
+template <bool CLEAN, bool CIRC, bool GEN>
 __device__ void run_stream(const Ctx& c) {
   int* S = c.S;
   const int lane = c.lane, b = c.b;
@@ -1443,40 +1639,64 @@ __device__ void run_stream(const Ctx& c) {
   AECM_RO_SCALARS(AECM_LOAD)
 #undef AECM_LOAD
 
-  // the circular schedule is the 4-frame step; the newest-first one runs
-  // 1 to 4 frames
-  const int n = CIRC ? N_FRAMES : in.n_frames;
-  const int n_slots = CIRC ? N_SLOTS : (n * FRAME_LEN + 48) / PART_LEN;
+  // the main path's circular schedule is the 4-frame step; its
+  // newest-first one runs 1 to 4 frames
+  const int n = (CIRC && !GEN) ? N_FRAMES : in.n_frames;
+  const int n_slots =
+      (CIRC && !GEN) ? N_SLOTS : (n * FRAME_LEN + 48) / PART_LEN;
   const int fill0 = sc.frame_fill;
   bool run[N_FRAMES];
   int k = 0;
-#pragma unroll
-  for (int f = 0; f < N_FRAMES; ++f) {
-    run[f] = f < n && in.run_rows[(size_t)f * in.B + b];
-    k += run[f];
-  }
   bool run_last = false;
+  if (GEN) {
+    for (int f = lane; f < n; f += 32) k += in.run_rows[(size_t)f * in.B + b];
+    k = (int)warp_sum((uint32_t)k);
+    run_last = in.run_rows[(size_t)(n - 1) * in.B + b];
+  } else {
 #pragma unroll
-  for (int f = 0; f < N_FRAMES; ++f) {
-    if (f == n - 1) run_last = run[f];
+    for (int f = 0; f < N_FRAMES; ++f) {
+      run[f] = f < n && in.run_rows[(size_t)f * in.B + b];
+      k += run[f];
+    }
+#pragma unroll
+    for (int f = 0; f < N_FRAMES; ++f) {
+      if (f == n - 1) run_last = run[f];
+    }
   }
   const int total = fill0 + FRAME_LEN * k;
 
   // slot-major block schedule; activity is monotone in s
-  int n_act = 0;
+  int n_act = 0, win0 = 0, next_f = 0;
   SlotIn x = fetch_slot<CLEAN, CIRC>(c, sc, 0, fill0, k, n);
   for (int s = 0; s < n_slots; ++s) {
     SlotIn next = x;
     if (s + 1 < n_slots) {
       next = fetch_slot<CLEAN, CIRC>(c, sc, s + 1, fill0, k, n);
     }
+    const int ring = GEN ? s % N_SLOTS : s;
     if (total >= PART_LEN * (s + 1)) {
-      _process_block_f<CLEAN, CIRC>(c, sc, s, x);
+      if (GEN && s - win0 == N_SLOTS) {
+        slide_reset(c);
+        win0 = s;
+      }
+      _process_block_f<CLEAN, CIRC, GEN>(c, sc, s, ring,
+                                         N_SLOTS - 1 - (s - win0), x);
       ++n_act;
     } else {
-      _inactive_slot<CIRC>(c, s, x);
+      _inactive_slot<CIRC, GEN>(c, s, ring, x);
     }
     x = next;
+    if (GEN) {
+      __syncwarp();   // this slot's outputs are in the ring
+      for (; next_f < n; ++next_f) {
+        const bool run_f = in.run_rows[(size_t)next_f * in.B + b];
+        if (s + 1 < n_slots &&
+            frame_last_slot(next_f, run_f, fill0, k, n) > s) {
+          break;
+        }
+        _emit_frame_f<true>(c, sc, next_f, run_f, fill0, k, n, n_slots);
+      }
+    }
   }
   __syncwarp();   // O_OUTS is complete; the carries are free to change
 
@@ -1503,57 +1723,13 @@ __device__ void run_stream(const Ctx& c) {
   }
   sc.frame_fill = (fill0 + 16 * k) & 63;
 
-  // per-frame output attribution and the 80-sample emit, in frame order
+  // the main path's per-frame output attribution and emit, in frame order
+  if (!GEN) {
 #pragma unroll
-  for (int f = 0; f < N_FRAMES; ++f) {
-    if (f >= n) break;
-    const bool run_f = run[f];
-    const int j_f = max(k - (n - f), 0);
-    const bool two = (((fill0 + 16 * j_f) & 63) >= 48) && run_f;
-    const int b_f = (fill0 + FRAME_LEN * j_f) >> 6;
-    const int o = sc.out_fill;
-    const int osel = o >> 4;
-    const int fo = 16 * osel;
-    // sample i of the frame's 192-sample work window: the out-carry up to
-    // its fill, then the frame's one or two blocks, zeros after
-    auto wo = [&](int i) -> int {
-      if (osel < 0 || osel > 3) return 0;
-      if (i < fo) return S[O_OUT_CARRY + i];
-      const int pi = i - fo;
-      if (pi >= 2 * PART_LEN) return 0;
-      if (pi < PART_LEN) return slot_sample(S, b_f, n_slots, pi);
-      return two ? slot_sample(S, b_f + 1, n_slots, pi - PART_LEN) : 0;
-    };
-    const int avail = o + (1 + (two ? 1 : 0)) * PART_LEN;
-    const int stuff = max(0, FRAME_LEN - avail);
-    const bool stuffed = stuff > 0;
-    int out_f[3], carry[2];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int i = lane + 32 * j;
-      out_f[j] = 0;
-      if (i < FRAME_LEN) {
-        out_f[j] = stuffed ? (i < 16 ? S[O_OUT_TAIL + i] : wo(i - 16)) : wo(i);
-      }
+    for (int f = 0; f < N_FRAMES; ++f) {
+      if (f >= n) break;
+      _emit_frame_f<false>(c, sc, f, run[f], fill0, k, n, n_slots);
     }
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = lane + 32 * j;
-      carry[j] = stuffed ? wo(64 + i) : wo(FRAME_LEN + i);
-    }
-    __syncwarp();   // the old carry and tail have been read
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int i = lane + 32 * j;
-      if (i < FRAME_LEN) S[O_EMIT + f * FRAME_LEN + i] = out_f[j];
-    }
-    if (run_f) {
-      S[O_OUT_CARRY + lane] = carry[0];
-      S[O_OUT_CARRY + 32 + lane] = carry[1];
-      sc.out_fill = avail + stuff - FRAME_LEN;
-      if (lane < 16) S[O_OUT_TAIL + lane] = out_f[2];   // out_f[64 + lane]
-    }
-    __syncwarp();
   }
 
   if (lane == 0) {
@@ -1561,23 +1737,26 @@ __device__ void run_stream(const Ctx& c) {
     AECM_RW_SCALARS(AECM_STORE)
 #undef AECM_STORE
     S[O_N_ACT] = n_act;
+    S[O_N_SLIDE] = n_act - win0;
   }
 }
 
 // Rows [row0, row0 + rows) of a (rows, B) array <-> word `off` on of each
-// of the block's streams, by the whole block: G adjacent streams are 4 G
-// contiguous bytes of a row.  `shift_off` is the stream's word holding the
-// number of rows the staged window moved back (negative: none).  Loads are
-// asynchronous copies (of an int64 leaf the low word): the caller commits
-// and waits for them.
-template <bool CLEAN, bool STORE, bool WIDE>
-__device__ void copy_rows(void* global, int row0, int rows, int off,
-                          int shift_off, int* streams, int b0, int B) {
-  using L = Layout<CLEAN>;
-  for (int e = threadIdx.x; e < rows * L::G; e += L::THREADS) {
-    const int r = e / L::G, g = e % L::G;
+// of the block's streams, by the whole block: G = 2^lg adjacent streams
+// are 4 G contiguous bytes of a row.  `shift_off` is the stream's word
+// holding the number of rows the staged window moved back (negative:
+// none).  Loads are asynchronous copies (of an int64 leaf the low word):
+// the caller commits and waits for them.
+template <bool STORE, bool WIDE>
+__device__ __forceinline__ void copy_rows(void* global, int row0, int rows,
+                                          int off, int shift_off,
+                                          int* streams, int b0, int B,
+                                          int lg, int words) {
+  const int G = 1 << lg, threads = 32 << lg;
+  for (int e = threadIdx.x; e < rows * G; e += threads) {
+    const int r = e >> lg, g = e & (G - 1);
     if (b0 + g >= B) continue;
-    int* S = streams + g * L::STREAM_WORDS;
+    int* S = streams + g * words;
     const size_t at = (size_t)(row0 + r) * B + b0 + g;
     int* word = S + off + r - (STORE && shift_off >= 0 ? S[shift_off] : 0);
     if (STORE) {
@@ -1596,85 +1775,120 @@ __device__ void copy_rows(void* global, int row0, int rows, int off,
 
 // The newest-first far history merge (fused.py _far_merge_deferred) of a
 // (blocks * rows, B) leaf, in place, by the whole block: stream g's new
-// block d is its pending block n_act - 1 - d (staged at word `pend_off`)
-// for d < n_act, else its old block d - n_act.  Row r takes row
+// block d is its pending block n_act - 1 - d for d < n_act (staged at word
+// `pend_off`; in the general instances from `pend`, (slots * rows, B) in
+// global memory), else its old block d - n_act.  Row r takes row
 // r - rows * n_act of the same stream, so the rows go in descending
 // chunks: each thread reads its rows of the chunk, the block syncs, and
 // the chunk is written.  A chunk's reads reach only rows below it, and no
 // thread writes the next chunk before every thread has passed the next
 // barrier, after its reads of this one.
-template <bool CLEAN>
+template <bool GEN>
 __device__ void merge_history(int* hist, int rows, int blocks, int pend_off,
-                              int* streams, int b0, int B) {
-  using L = Layout<CLEAN>;
-  constexpr int K = 8;                          // values a thread a chunk
-  constexpr int CHUNK = K * L::THREADS / L::G;  // rows a chunk
+                              const int* pend, int* streams, int b0, int B,
+                              int lg, int words) {
+  constexpr int K = 8;                 // values a thread a chunk
+  constexpr int CHUNK = K * 32;        // rows a chunk
+  const int G = 1 << lg, threads = 32 << lg;
   for (int hi = rows * blocks; hi > 0; hi -= CHUNK) {
     int v[K];
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int e = threadIdx.x + j * L::THREADS;
-      const int r = hi - 1 - e / L::G, g = e % L::G;
+      const int e = threadIdx.x + j * threads;
+      const int r = hi - 1 - (e >> lg), g = e & (G - 1);
       v[j] = 0;
       if (r >= 0 && b0 + g < B) {
-        const int* S = streams + g * L::STREAM_WORDS;
+        const int* S = streams + g * words;
         const int n_act = S[O_N_ACT];
         const int d = r / rows;
         if (n_act == 0) continue;
-        v[j] = d < n_act
-                   ? S[pend_off + (n_act - 1 - d) * rows + r % rows]
-                   : hist[(size_t)(r - rows * n_act) * B + b0 + g];
+        if (d >= n_act) {
+          v[j] = hist[(size_t)(r - rows * n_act) * B + b0 + g];
+        } else if (GEN) {
+          v[j] = pend[(size_t)((n_act - 1 - d) * rows + r % rows) * B + b0 +
+                      g];
+        } else {
+          v[j] = S[pend_off + (n_act - 1 - d) * rows + r % rows];
+        }
       }
     }
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < K; ++j) {
-      const int e = threadIdx.x + j * L::THREADS;
-      const int r = hi - 1 - e / L::G, g = e % L::G;
-      if (r >= 0 && b0 + g < B &&
-          streams[g * L::STREAM_WORDS + O_N_ACT] > 0) {
+      const int e = threadIdx.x + j * threads;
+      const int r = hi - 1 - (e >> lg), g = e & (G - 1);
+      if (r >= 0 && b0 + g < B && streams[g * words + O_N_ACT] > 0) {
         hist[(size_t)r * B + b0 + g] = v[j];
       }
     }
   }
 }
 
-template <bool CLEAN, bool CIRC>
+// The delay estimator's leaves with rows, as staged: (leaf, rows, word
+// offset, sliding, int64).  The near binary history is a row leaf in the
+// general instances only.
+struct DeLeaf {
+  int leaf, rows, off;
+  bool slide, wide;
+};
+template <bool GEN>
+__device__ __forceinline__ int de_leaves(const Geo& g, DeLeaf* out) {
+  out[0] = DeLeaf{FE_BINARY_HISTORY, g.H, g.fe_hist, true, true};
+  out[1] = DeLeaf{FE_BIT_COUNTS, g.H, g.fe_bc, true, false};
+  out[2] = DeLeaf{NE_BIT_COUNTS, g.H, g.ne_bc, false, false};
+  out[3] = DeLeaf{NE_MEAN_BIT_COUNTS, g.H + 1, g.ne_mbc, false, false};
+  out[4] = DeLeaf{NE_HISTOGRAM, g.H + 1, g.ne_hist, false, false};
+  out[5] = DeLeaf{NE_BINARY_HISTORY, g.cap, g.ne_bh, true, true};
+  return GEN ? 6 : 5;
+}
+
+template <bool CLEAN, bool CIRC, bool GEN>
 __global__ void __launch_bounds__(Layout<CLEAN>::THREADS,
                                   Layout<CLEAN>::MIN_BLOCKS)
 frames_step_kernel(const __grid_constant__ Leaves lv,
                    const __grid_constant__ Inputs in) {
   using L = Layout<CLEAN>;
   extern __shared__ int smem[];
+  const Geo geo = GEN ? in.geo : make_geo(CLEAN, false, MAX_DELAY, 1);
+  const int lg = GEN ? in.lg : L::LG;
+  const int words = geo.words, threads = 32 << lg;
   int* fwr = smem;
   int* fws = fwr + 7 * 128;
   int* win = fws + 7 * 128;
   int* streams = smem + TABLE_WORDS;
-  const int b0 = blockIdx.x * L::G;
+  const int b0 = blockIdx.x << lg;
+  DeLeaf de[6];
+  const int n_de = de_leaves<GEN>(geo, de);
 
-  for (int e = threadIdx.x; e < 7 * 128; e += L::THREADS) {
+  for (int e = threadIdx.x; e < 7 * 128; e += threads) {
     __pipeline_memcpy_async(fwr + e, in.fwr + e, 4);
     __pipeline_memcpy_async(fws + e, in.fws + e, 4);
   }
-  for (int e = threadIdx.x; e < 128; e += L::THREADS) {
+  for (int e = threadIdx.x; e < 128; e += threads) {
     __pipeline_memcpy_async(win + e, in.win128 + e, 4);
   }
   for (int n = 0; n < N_ROW_LEAVES - (CLEAN ? 0 : 2); ++n) {
     const RowLeaf R = kRowLeaves[n];
     const int off = R.off + (R.slide ? N_SLOTS : 0);
-    if (R.wide) {
-      copy_rows<CLEAN, false, true>(lv.p[R.leaf], R.row0, R.rows, off, -1,
-                                    streams, b0, in.B);
+    copy_rows<false, false>(lv.p[R.leaf], R.row0, R.rows, off, -1, streams,
+                            b0, in.B, lg, words);
+  }
+#pragma unroll
+  for (int n = 0; n < n_de; ++n) {
+    const int off = de[n].off + (de[n].slide ? N_SLOTS : 0);
+    if (de[n].wide) {
+      copy_rows<false, true>(lv.p[de[n].leaf], 0, de[n].rows, off, -1,
+                             streams, b0, in.B, lg, words);
     } else {
-      copy_rows<CLEAN, false, false>(lv.p[R.leaf], R.row0, R.rows, off, -1,
-                                     streams, b0, in.B);
+      copy_rows<false, false>(lv.p[de[n].leaf], 0, de[n].rows, off, -1,
+                              streams, b0, in.B, lg, words);
     }
   }
-  for (int e = threadIdx.x; e < N_SCALARS * L::G; e += L::THREADS) {
-    const int leaf = kScalarLeaves[e / L::G], g = e % L::G;
+  for (int e = threadIdx.x; e < (N_SCALARS << lg); e += threads) {
+    const int leaf = kScalarLeaves[e >> lg], g = e & ((1 << lg) - 1);
     if (b0 + g < in.B) {
       __pipeline_memcpy_async(
-          streams + g * L::STREAM_WORDS + O_SCAL + leaf,
+          streams + g * words + O_SCAL + leaf,
           (const int*)lv.p[leaf] +
               (leaf == NE_BINARY_HISTORY ? 2 * (b0 + g) : b0 + g),
           4);
@@ -1686,89 +1900,185 @@ frames_step_kernel(const __grid_constant__ Leaves lv,
 
   const int warp = threadIdx.x >> 5;
   if (b0 + warp < in.B) {   // the whole warp together
-    const Ctx c{streams + warp * L::STREAM_WORDS, fwr, fws, win, lv, in,
-                b0 + warp, (int)(threadIdx.x & 31)};
-    run_stream<CLEAN, CIRC>(c);
+    const int b = b0 + warp;
+    const Ctx c{streams + warp * words, fwr, fws, win, lv, in, b,
+                (int)(threadIdx.x & 31), geo,
+                GEN ? ((const int*)lv.p[NE_LOOKAHEAD])[b] : 0};
+    run_stream<CLEAN, CIRC, GEN>(c);
   }
   __syncthreads();
 
   for (int n = 0; n < N_ROW_LEAVES - (CLEAN ? 0 : 2); ++n) {
     const RowLeaf R = kRowLeaves[n];
     const int off = R.off + (R.slide ? N_SLOTS : 0);
-    const int shift_off = R.slide ? O_N_ACT : -1;
-    if (R.wide) {
-      copy_rows<CLEAN, true, true>(lv.p[R.leaf], R.row0, R.rows, off,
-                                   shift_off, streams, b0, in.B);
+    copy_rows<true, false>(lv.p[R.leaf], R.row0, R.rows, off,
+                           R.slide ? O_N_SLIDE : -1, streams, b0, in.B, lg,
+                           words);
+  }
+#pragma unroll
+  for (int n = 0; n < n_de; ++n) {
+    const int off = de[n].off + (de[n].slide ? N_SLOTS : 0);
+    const int shift_off = de[n].slide ? O_N_SLIDE : -1;
+    if (de[n].wide) {
+      copy_rows<true, true>(lv.p[de[n].leaf], 0, de[n].rows, off, shift_off,
+                            streams, b0, in.B, lg, words);
     } else {
-      copy_rows<CLEAN, true, false>(lv.p[R.leaf], R.row0, R.rows, off,
-                                    shift_off, streams, b0, in.B);
+      copy_rows<true, false>(lv.p[de[n].leaf], 0, de[n].rows, off,
+                             shift_off, streams, b0, in.B, lg, words);
     }
   }
-  for (int e = threadIdx.x; e < N_RW_SCALARS * L::G; e += L::THREADS) {
-    const int leaf = kScalarLeaves[e / L::G], g = e % L::G;
+  for (int e = threadIdx.x; e < (N_RW_SCALARS << lg); e += threads) {
+    const int leaf = kScalarLeaves[e >> lg], g = e & ((1 << lg) - 1);
     if (b0 + g < in.B) {
-      const int v = streams[g * L::STREAM_WORDS + O_SCAL + leaf];
+      const int v = streams[g * words + O_SCAL + leaf];
       if (leaf == NE_BINARY_HISTORY) {
-        ((long long*)lv.p[leaf])[b0 + g] = (long long)(uint32_t)v;
+        // the general instances store it with the row leaves
+        if (!GEN) ((long long*)lv.p[leaf])[b0 + g] = (long long)(uint32_t)v;
       } else {
         ((int*)lv.p[leaf])[b0 + g] = v;
       }
     }
   }
-  const int n_frames = CIRC ? N_FRAMES : in.n_frames;
-  copy_rows<CLEAN, true, false>(in.out, 0, n_frames * FRAME_LEN, O_EMIT, -1,
-                                streams, b0, in.B);
-  if (CIRC) {
-    copy_rows<CLEAN, true, false>(in.pend_hist, 0, N_SLOTS * FAR_HIST_ROWS,
-                                  O_PEND, -1, streams, b0, in.B);
-    copy_rows<CLEAN, true, false>(in.pend_q, 0, N_SLOTS, O_PEND_Q, -1,
-                                  streams, b0, in.B);
-  } else {
-    merge_history<CLEAN>((int*)lv.p[FAR_HISTORY], FAR_HIST_ROWS, MAX_DELAY,
-                         O_PEND, streams, b0, in.B);
-    merge_history<CLEAN>((int*)lv.p[FAR_Q_DOMAINS], 1, MAX_DELAY, O_PEND_Q,
-                         streams, b0, in.B);
+  if (!GEN) {
+    const int n_frames = CIRC ? N_FRAMES : in.n_frames;
+    copy_rows<true, false>(in.out, 0, n_frames * FRAME_LEN, O_EMIT, -1,
+                           streams, b0, in.B, lg, words);
+    if (CIRC) {
+      copy_rows<true, false>(in.pend_hist, 0, N_SLOTS * FAR_HIST_ROWS,
+                             O_PEND, -1, streams, b0, in.B, lg, words);
+      copy_rows<true, false>(in.pend_q, 0, N_SLOTS, O_PEND_Q, -1, streams,
+                             b0, in.B, lg, words);
+    }
+  }
+  if (!CIRC) {
+    merge_history<GEN>((int*)lv.p[FAR_HISTORY], FAR_HIST_ROWS, MAX_DELAY,
+                       O_PEND, in.pend_hist, streams, b0, in.B, lg, words);
+    merge_history<GEN>((int*)lv.p[FAR_Q_DOMAINS], 1, MAX_DELAY, O_PEND_Q,
+                       in.pend_q, streams, b0, in.B, lg, words);
   }
 }
 
-// Launch one instance on `stream`; returns a CUDA error code.
-template <bool CLEAN, bool CIRC>
-int launch_frames(const Leaves& lv, const Inputs& in, cudaStream_t stream) {
+// Shared bytes a block of 2^lg streams of `words` words takes.
+__host__ __device__ constexpr int frames_smem(int lg, int words) {
+  return (TABLE_WORDS + (words << lg)) * 4;
+}
+
+// The launch shape of an instance at history size H and lookahead capacity
+// cap: in the general instances the number of streams a block (a power of
+// two up to the main layout's G) that leaves the most warps resident, the
+// larger on a tie.  Returns a CUDA error code, or -4 if one stream does not
+// fit a block.
+template <bool CLEAN, bool CIRC, bool GEN>
+int frames_shape(int H, int cap, Geo* geo, int* lg, int* blocks_per_sm) {
   using L = Layout<CLEAN>;
+  const auto kernel = frames_step_kernel<CLEAN, CIRC, GEN>;
   // more than 48 KB of shared memory is dynamic and asked for once a card
   static bool asked[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device >= 64 || !asked[device]) {
-    err = cudaFuncSetAttribute(frames_step_kernel<CLEAN, CIRC>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               L::SMEM_BYTES);
+                               GEN ? SMEM_LIMIT : L::SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
     if (device < 64) asked[device] = true;
   }
-  const int blocks = (in.B + L::G - 1) / L::G;
-  frames_step_kernel<CLEAN, CIRC>
-      <<<blocks, L::THREADS, L::SMEM_BYTES, stream>>>(lv, in);
+  *geo = GEN ? make_geo(CLEAN, true, H, cap) : L::GEO;
+  if (!GEN) {
+    *lg = L::LG;
+    if (blocks_per_sm == nullptr) return 0;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, L::THREADS, L::SMEM_BYTES);
+  }
+  // the general instances: the last shape asked for is kept
+  static int last_H = -1, last_cap = -1, last_lg = 0, last_blocks = 0;
+  if (H != last_H || cap != last_cap) {
+    if (frames_smem(0, geo->words) > SMEM_LIMIT) return -4;
+    int best_lg = 0, best_warps = -1, best_blocks = 0;
+    for (int l = L::LG; l >= 0; --l) {
+      const int smem = frames_smem(l, geo->words);
+      if (smem > SMEM_LIMIT) continue;
+      int blocks = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                          32 << l, smem);
+      if (err != cudaSuccess) return (int)err;
+      if ((blocks << l) > best_warps) {
+        best_warps = blocks << l;
+        best_lg = l;
+        best_blocks = blocks;
+      }
+    }
+    last_H = H;
+    last_cap = cap;
+    last_lg = best_lg;
+    last_blocks = best_blocks;
+  }
+  *lg = last_lg;
+  if (blocks_per_sm != nullptr) *blocks_per_sm = last_blocks;
+  return 0;
+}
+
+// Launch one instance on `stream`; returns a CUDA error code (-4: the
+// history does not fit a block).
+template <bool CLEAN, bool CIRC, bool GEN>
+int launch_frames(const Leaves& lv, Inputs in, cudaStream_t stream) {
+  int err = frames_shape<CLEAN, CIRC, GEN>(in.geo.H, in.geo.cap, &in.geo,
+                                           &in.lg, nullptr);
+  if (err) return err;
+  const int blocks = (in.B + (1 << in.lg) - 1) >> in.lg;
+  frames_step_kernel<CLEAN, CIRC, GEN>
+      <<<blocks, 32 << in.lg, frames_smem(in.lg, in.geo.words), stream>>>(
+          lv, in);
   return (int)cudaGetLastError();
+}
+
+// Launch the instance a step takes (frames_instance_is_general).
+template <bool CLEAN>
+int launch_frames_of(bool circular, bool general, const Leaves& lv,
+                     const Inputs& in, cudaStream_t stream) {
+  if (general) {
+    return circular ? launch_frames<CLEAN, true, true>(lv, in, stream)
+                    : launch_frames<CLEAN, false, true>(lv, in, stream);
+  }
+  return circular ? launch_frames<CLEAN, true, false>(lv, in, stream)
+                  : launch_frames<CLEAN, false, false>(lv, in, stream);
 }
 
 // An instance's launch shape, for reports: streams per block, shared bytes
 // per block, and how many blocks of it an SM holds at once.
-template <bool CLEAN, bool CIRC>
-int frames_layout_of(int* streams_per_block, int* smem_bytes,
+template <bool CLEAN>
+int frames_layout_of(bool circular, bool general, int H, int cap,
+                     int* streams_per_block, int* smem_bytes,
                      int* blocks_per_sm) {
-  using L = Layout<CLEAN>;
-  *streams_per_block = L::G;
-  *smem_bytes = L::SMEM_BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      frames_step_kernel<CLEAN, CIRC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, frames_step_kernel<CLEAN, CIRC>, L::THREADS,
-      L::SMEM_BYTES);
+  Geo geo;
+  int lg = 0, err;
+  if (general) {
+    err = circular ? frames_shape<CLEAN, true, true>(H, cap, &geo, &lg,
+                                                      blocks_per_sm)
+                   : frames_shape<CLEAN, false, true>(H, cap, &geo, &lg,
+                                                       blocks_per_sm);
+  } else {
+    err = circular ? frames_shape<CLEAN, true, false>(H, cap, &geo, &lg,
+                                                       blocks_per_sm)
+                   : frames_shape<CLEAN, false, false>(H, cap, &geo, &lg,
+                                                        blocks_per_sm);
+  }
+  *streams_per_block = 1 << lg;
+  *smem_bytes = frames_smem(lg, geo.words);
+  return err;
 }
 
 }  // namespace
+
+// Whether a step takes the general instances: any history size but 100,
+// lookahead capacity above 1, more than N_SLOTS slots, or a circular step
+// of other than 4 frames (fused_kernel.general_instance).
+inline bool frames_instance_is_general(int H, int cap, int n_frames,
+                                       bool circular) {
+  const int n_slots = (n_frames * FRAME_LEN + 48) / PART_LEN;
+  return !(H == MAX_DELAY && cap == 1 && n_slots <= N_SLOTS &&
+           (n_frames == N_FRAMES || !circular));
+}
+
 }  // namespace aecm

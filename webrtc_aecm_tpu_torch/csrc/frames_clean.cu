@@ -4,18 +4,16 @@
 
 namespace aecm {
 
-int frames_launch_clean(bool circular, const Leaves& lv, const Inputs& in,
-                        cudaStream_t stream) {
-  return circular ? launch_frames<true, true>(lv, in, stream)
-                  : launch_frames<true, false>(lv, in, stream);
+int frames_launch_clean(bool circular, bool general, const Leaves& lv,
+                        Inputs in, cudaStream_t stream) {
+  return launch_frames_of<true>(circular, general, lv, in, stream);
 }
 
-int frames_layout_clean(bool circular, int* streams_per_block,
-                        int* smem_bytes, int* blocks_per_sm) {
-  return circular ? frames_layout_of<true, true>(streams_per_block,
-                                                 smem_bytes, blocks_per_sm)
-                  : frames_layout_of<true, false>(streams_per_block,
-                                                  smem_bytes, blocks_per_sm);
+int frames_layout_clean(bool circular, bool general, int H, int cap,
+                        int* streams_per_block, int* smem_bytes,
+                        int* blocks_per_sm) {
+  return frames_layout_of<true>(circular, general, H, cap, streams_per_block,
+                                smem_bytes, blocks_per_sm);
 }
 
 }  // namespace aecm

@@ -14,12 +14,14 @@ Two execution paths share one semantics:
     plain path on the card (chip_smoke.py).
 
 Scope: the JAX package's fused envelope at 8 and 16 kHz: any number of
-chunks per step (the frames kernel takes steps of up to 4 frames, 5 block
-slots; wider ones run on the plain path), the circular far history where a
-step is whole blocks and the newest-first one elsewhere (the 10 ms
-real-time step), a single or a clean near input, `abs_approx`, and a tail of
-chunks as one final smaller step.  Delay-estimator lookahead capacity > 1
-raises NotImplementedError.
+chunks per step, on both paths, the circular far history where a step is
+whole blocks dividing the history and the newest-first one elsewhere (the
+10 ms real-time step), a single or a clean near input, `abs_approx`, a tail
+of chunks as one final smaller step, and a delay estimator of any history
+size and lookahead capacity (`delay_estimator.set_history_size`, a near
+binary history of more than one row).  The kernel path refuses only a
+history size whose one stream does not fit a thread block's shared memory
+(fused_kernel.check_fits).
 """
 from __future__ import annotations
 
@@ -146,7 +148,9 @@ def to_fused_core(core_b):
 
 def from_fused_core(core_f, template=None):
     """Inverse of to_fused_core; `template` (a one-stream CoreState)
-    supplies the trailing shapes.  far_history comes back as int32 bins."""
+    supplies which leaves are scalars and the far history's shape; a
+    vector leaf takes its length from core_f, so a resized delay estimator
+    comes back as it is.  far_history comes back as int32 bins."""
     if template is None:
         template = core_mod.create_core(8000, device="cpu")
     template = template._replace(far_history=torch.zeros(
@@ -155,6 +159,8 @@ def from_fused_core(core_f, template=None):
     def conv(x, t):
         if t.ndim == 0:
             return x[0].contiguous()
+        if t.ndim == 1:     # rows from x: resized delay-estimator leaves
+            return x.T.contiguous()
         return x.T.reshape((x.shape[1],) + tuple(t.shape)).contiguous()
     core_b = tree_map(conv, core_f, template)
     bins = _unpack_far_block(core_b.far_history.transpose(-1, -2))
@@ -285,7 +291,7 @@ def _real_inverse_fft(re, im, t: Tables):
 
 
 # ---------------------------------------------------------------------------
-# Delay estimator, lane-major (lookahead capacity 1, AECM's configuration)
+# Delay estimator, lane-major (any history size and lookahead capacity)
 # ---------------------------------------------------------------------------
 
 def _binary_spectrum_fix_f(spectrum, mean_spectrum, q_domain, initialized):
@@ -321,12 +327,19 @@ def _add_far_spectrum_fix_f(farend: de.FarendState, spectrum, far_q):
 
 def _process_binary_spectrum_f(near: de.NearState, farend: de.FarendState,
                                bits):
-    """delay_estimator.process_binary_spectrum, lane-major, lookahead
-    capacity 1."""
+    """delay_estimator.process_binary_spectrum, lane-major, at any history
+    size and lookahead capacity (both from the leaf shapes).  Capacity > 1
+    keeps the near binary history as a shift register and compares the row
+    at the per-stream runtime lookahead, clamped to the capacity."""
     dev = bits.device
     history_size = near.bit_counts.shape[0]
-    assert near.binary_history.shape[0] == 1, "lookahead capacity > 1"
-    near = near._replace(binary_history=bits)
+    cap = near.binary_history.shape[0]
+    if cap > 1:
+        hist = _shift_in(near.binary_history, bits)
+        near = near._replace(binary_history=hist)
+        bits = torch.gather(hist, 0, near.lookahead.clamp(0, cap - 1).long())
+    else:
+        near = near._replace(binary_history=bits)
     bit_counts = spl.popcount_u32(bits ^ farend.binary_history)
 
     bit_count_q9 = bit_counts << 9
@@ -1291,30 +1304,17 @@ def _from_circular_far(core_f, head: int):
                            far_q_domains=q.contiguous())
 
 
-MAX_KERNEL_FRAMES = 4
-# The frames kernel's widest step: 4 frames = 5 block slots (16 kHz x 2
-# chunks, 8 kHz x 4).  Wider steps run on the plain path only.
-
-
-def _check_envelope(sample_rate: int, chunks_per_step: int,
-                    use_kernel: bool, state=None):
-    """What the port still refuses (ROADMAP.md Queue 1 item 9's rest):
-    delay-estimator lookahead capacity > 1, and on the kernel path a step
-    of more than 4 frames (5 block slots)."""
+def _check_envelope(sample_rate: int, use_kernel: bool, state=None,
+                    has_clean: bool = False):
+    """What the port still refuses: a sample rate other than 8 or 16 kHz,
+    and on the kernel path a delay-estimator history size whose one stream
+    does not fit a thread block's shared memory
+    (fused_kernel.check_fits)."""
     if sample_rate not in (8000, 16000):
         raise ValueError("sample_rate must be 8000 or 16000")
-    n_frames = min(160, sample_rate // 100) // D.FRAME_LEN * chunks_per_step
-    if use_kernel and n_frames > MAX_KERNEL_FRAMES:
-        raise NotImplementedError(
-            f"a step of {chunks_per_step} chunks at {sample_rate} Hz is "
-            f"{n_frames} frames ({_n_slots_for(n_frames)} block slots); the "
-            f"frames kernel runs at most {MAX_KERNEL_FRAMES} frames (5 block "
-            "slots): more is ROADMAP.md Queue 1 item 9 (use_kernel=False "
-            "runs the plain path)")
-    if state is not None and state.core.de_near.binary_history.shape[0] != 1:
-        raise NotImplementedError(
-            "delay-estimator lookahead capacity > 1 is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
+    if use_kernel and state is not None:
+        from . import fused_kernel
+        fused_kernel.check_fits(state.core, has_clean)
 
 
 class FusedAecm(nn.Module):
@@ -1349,7 +1349,7 @@ class FusedAecm(nn.Module):
                  circular_far: Optional[bool] = None):
         super().__init__()
         cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
-        _check_envelope(sample_rate, cps, use_kernel)
+        _check_envelope(sample_rate, use_kernel)
         device = _device.resolve(device)
         self.sample_rate = sample_rate
         self.cps = cps
@@ -1487,7 +1487,8 @@ class FusedAecm(nn.Module):
         t = self.tables
         cps, out_len, fpc = self.cps, self.out_len, self.fpc
         ctrl, core_f = state.ctrl, state.core
-        _check_envelope(self.sample_rate, cps, self.use_kernel, state)
+        _check_envelope(self.sample_rate, self.use_kernel, state,
+                        self.has_clean)
         b = ctrl.ec_startup.shape[0]
         dev = ctrl.ec_startup.device
         ms_all = torch.as_tensor(ms, dtype=I32, device=dev).expand(cps, b)
@@ -1646,8 +1647,7 @@ def run_streams_fused(state: FusedState, far, near, sample_rate: int,
     n_super, rem = divmod(n_chunks, cps)
     spans = [(0, n_super * cps, cps)] + ([(n_super * cps, n_chunks, rem)]
                                          if rem else [])
-    for _, _, c in spans:
-        _check_envelope(sample_rate, c, use_kernel, state)
+    _check_envelope(sample_rate, use_kernel, state, has_clean)
 
     ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32, device=dev)
     if ms.ndim == 0 or (ms.ndim == 1 and ms.shape[0] == n_streams):
