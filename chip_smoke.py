@@ -75,7 +75,29 @@ final line):
                clean input, one at history size 257 and capacity 4) over 37
                chunks: kernel path == plain path, one frames launch and one
                ring launch per step, tails included
- 11. timing    streams served at 1x real time on each engine's kernel and
+ 11. debug     AecmInstance(device="cuda").process(debug=True) call by call
+               at 8 kHz, 16 kHz and with a clean input == the JAX package's
+               outputs, warnings and every debug tap
+               (tests/data/torch_golden_surface.npz, dbg.*); one ring_write
+               and one ring_read launch per call
+ 12. cli       the CLI (utils/cli.py main) in-process on the card: single
+               pairs at 8 and 16 kHz with --erle --echo-mode 3, the --batch
+               list of 3 pairs and a float32 pair == the JAX CLI's output
+               samples (cli.*), the frames and ring_multi_pass kernels
+               launched; `python -m webrtc_aecm_tpu_torch` in a subprocess:
+               exit code 0 and the same file
+ 13. erle      tools/erle_report_torch.py's battery on the card: the 10
+               scenes of tools/erle_report.py bit-exact with the JAX package
+               (erle.*, output and scene hashes), ERLE per scene
+ 14. mesh      AecmPipeline(mesh=...) on [cuda:0] and [cuda:0, cuda:0] (and
+               on two cards when there are two) == no mesh at 1024 streams:
+               both engines, run and 10 ms steps, 8 and 16 kHz; the
+               two-shard mesh launches exactly twice the one-shard mesh
+ 15. long call the state bytes of create_batch / create_fused on the card
+               linear in the streams and under 128 KiB a stream;
+               tests/test_long_call.py's drift sequence == the JAX
+               package's (long.*)
+ 16. timing    streams served at 1x real time on each engine's kernel and
                plain paths at 16 kHz and on the kernel paths at 8 kHz (CUDA
                events); the real-time step's wall ms per 10 ms chunk at 8
                and 16 kHz on both engines; a batch-major chunk's kernel
@@ -1375,6 +1397,294 @@ def phase_envelope(torch, dev):
     return totals, worst
 
 
+# ---------------------------------------------------------------------------
+# the outer surface: debug taps, CLI, ERLE battery, several devices, the
+# long call (tests/data/torch_golden_surface.npz, from
+# tools/make_torch_golden_surface.py)
+# ---------------------------------------------------------------------------
+
+def repo_tool(name):
+    """tools/<name>.py as a module (numpy only at import)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(REPO, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def surface_golden(group):
+    """The surface golden file's arrays whose key starts with `group`."""
+    with np.load(os.path.join(REPO, "tests", "data",
+                              "torch_golden_surface.npz")) as g:
+        return {k: g[k] for k in g.files if k.startswith(group)}
+
+
+DEBUG_ENTRIES = ("8k", "16k", "16k_clean")
+
+
+def phase_debug(torch, dev):
+    """AecmInstance(device="cuda").process(..., debug=True) call by call ==
+    the JAX package's outputs, warnings and every tap (golden `dbg.*`), at
+    8 kHz, 16 kHz and with a clean input; one ring_write and one ring_read
+    launch per call."""
+    from webrtc_aecm_tpu_torch import AecmInstance
+    gen = repo_tool("make_torch_golden_surface")
+    g = surface_golden("dbg.")
+    totals, n_taps = {}, 0
+    for name in DEBUG_ENTRIES:
+        fs, calls = gen.DBG[name][:2]
+        far, near, clean, ms = gen.dbg_inputs(name)
+        n = fs // 100
+        inst = AecmInstance(fs, device=dev)
+        p = f"dbg.{name}"
+
+        def serve():
+            res = []
+            for c in range(calls):
+                cols = slice(c * n, (c + 1) * n)
+                inst.buffer_farend(far[cols])
+                res.append(inst.process(
+                    near[cols], None if clean is None else clean[cols],
+                    int(ms[c]), debug=True))
+            return res
+        res, launches = counted(torch, serve)
+        want = {"frames_step": 0, "ring_multi_pass": 0, "ring_pass": 0,
+                "ring_write": calls, "ring_gather": calls}
+        if launches != want:
+            fail(f"debug {name}: launches {launches}, expected {want}")
+        for c, (out, warn, taps) in enumerate(res):
+            if not np.array_equal(out, g[f"{p}.out"][c]) \
+                    or warn != g[f"{p}.warn"][c]:
+                fail(f"debug {name}: call {c} output or warning differs "
+                     "from the JAX package's")
+            for k, v in taps.items():
+                ref = g[f"{p}.tap.{k}"][c]
+                if v.dtype != ref.dtype or not np.array_equal(v, ref):
+                    fail(f"debug {name}: call {c} tap {k} differs from the "
+                         "JAX package's")
+                n_taps += 1
+        if res[-1][2]["delay_blocks"].max() <= 0:
+            fail(f"debug {name}: no delay estimate")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  {name}: {calls} calls, outputs, warnings and taps == the "
+            f"JAX package's; launches {launches}")
+    return totals, n_taps
+
+
+def phase_cli(torch, dev):
+    """The CLI in-process on the card (single pairs with --erle
+    --echo-mode 3 at 8 and 16 kHz, the --batch list, a float32 pair) ==
+    the JAX CLI's output samples (golden `cli.*`), the frames and
+    ring_multi_pass kernels launched; and `python -m
+    webrtc_aecm_tpu_torch` in a subprocess: exit code 0 and the same
+    file."""
+    import tempfile
+    from webrtc_aecm_tpu_torch.utils import cli, read_wav_int16, \
+        write_wav_int16
+    gen = repo_tool("make_torch_golden_surface")
+    g = surface_golden("cli.")
+    totals = {}
+
+    def run_cli(argv):
+        rc, launches = counted(torch, lambda: cli.main(argv))
+        if rc != 0:
+            fail(f"cli {argv}: exit code {rc}")
+        if launches["frames_step"] <= 0 or launches["ring_multi_pass"] <= 0:
+            fail(f"cli {argv}: launches {launches}: the fused kernels did "
+                 "not run")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def same(path, key):
+        out, _ = read_wav_int16(path)
+        if not np.array_equal(out, g[key]):
+            fail(f"cli: {os.path.basename(path)} differs from the JAX "
+                 f"CLI's ({key})")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def at(name):
+            return os.path.join(tmp, name)
+        for name in gen.CLI:
+            far, near, fs = gen.cli_pair(name)
+            write_wav_int16(at(f"far_{name}.wav"), far, fs)
+            write_wav_int16(at(f"near_{name}.wav"), near, fs)
+            run_cli([at(f"far_{name}.wav"), at(f"near_{name}.wav")]
+                    + gen.CLI_FLAGS)
+            same(at(f"near_{name}_out.wav"), f"cli.{name}.out")
+        pairs, fs = gen.cli_batch_pairs()
+        lines = []
+        for k, (far, near) in enumerate(pairs):
+            write_wav_int16(at(f"far{k}.wav"), far, fs)
+            write_wav_int16(at(f"near{k}.wav"), near, fs)
+            lines.append(f"{at(f'far{k}.wav')} {at(f'near{k}.wav')}")
+        with open(at("list.txt"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        run_cli(["--batch", at("list.txt"), "--erle"])
+        for k in range(len(pairs)):
+            same(at(f"near{k}_out.wav"), f"cli.batch{k}.out")
+        far, near, fs = gen.cli_float_pair()
+        gen.write_raw_wav(at("far_f32.wav"), 3, 32,
+                          gen.to_float32(far).tobytes(), rate=fs)
+        gen.write_raw_wav(at("near_f32.wav"), 3, 32,
+                          gen.to_float32(near).tobytes(), rate=fs)
+        run_cli([at("far_f32.wav"), at("near_f32.wav")])
+        same(at("near_f32_out.wav"), "cli.f32.out")
+        # python -m, on the default device (the card)
+        os.remove(at("near_8k_out.wav"))
+        r = subprocess.run(
+            [sys.executable, "-m", "webrtc_aecm_tpu_torch",
+             at("far_8k.wav"), at("near_8k.wav")] + gen.CLI_FLAGS,
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, PYTHONPATH=REPO))
+        if r.returncode != 0:
+            fail(f"python -m webrtc_aecm_tpu_torch: exit code "
+                 f"{r.returncode}\n{r.stderr[-2000:]}")
+        same(at("near_8k_out.wav"), "cli.8k.out")
+        log(f"  python -m webrtc_aecm_tpu_torch: exit 0, "
+            f"{r.stdout.strip().splitlines()[0]}")
+    return totals
+
+
+def phase_erle(torch, dev):
+    """tools/erle_report_torch.py's battery on the card: all 10 scenes
+    bit-exact with the JAX package (golden `erle.*`), the scene generator's
+    hashes too; ERLE per scene."""
+    tool = repo_tool("erle_report_torch")
+    g = surface_golden("erle.")
+    erle, totals = {}, {}
+    for _, scenes in tool.GROUPS:
+        res, launches = counted(torch, lambda: tool.run(
+            [s[0] for s in scenes], dev))
+        if launches["frames_step"] <= 0:
+            fail(f"erle: the frames kernel did not run ({launches})")
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        for name, r in res.items():
+            c = tool.check(name, *r, g)
+            if not (c["bit_exact"] and c["scene_matches"]):
+                fail(f"erle {name}: {c}")
+            erle[name] = c["erle_db"]
+            log(f"  {name}: ERLE {c['erle_db']:.3f} dB (JAX "
+                f"{c['erle_jax_db']:.3f}), bit-exact")
+    return erle, totals
+
+
+MESH_B = 1024
+
+
+def phase_mesh(torch, dev):
+    """AecmPipeline on a mesh [cuda:0] and [cuda:0, cuda:0] (and over two
+    cards when there are two) == without a mesh: both engines, run (with a
+    tail) then 10 ms steps, 8 and 16 kHz, the desync scene (streams that
+    differ); outputs, warnings and the gathered state equal, and the
+    two-shard mesh launches exactly twice what the one-shard mesh does."""
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    from webrtc_aecm_tpu_torch.parallel import make_mesh
+    n_cards = torch.cuda.device_count()
+    log(f"  torch.cuda.device_count() = {n_cards}")
+    meshes = {"[cuda:0]": [dev], "[cuda:0, cuda:0]": [dev, dev]}
+    if n_cards > 1:
+        meshes["[cuda:0, cuda:1]"] = [torch.device("cuda", 0),
+                                      torch.device("cuda", 1)]
+    per_step, worst = {}, 0.0
+    for fs in (8000, 16000):
+        chunk, cps = fs // 100, (4 if fs == 8000 else 2)
+        n_run, n_steps = 2 * cps + 1, 3
+        far, near, ms = desync_scene(MESH_B, n_run + n_steps, 2, 5, 64,
+                                     fs=fs)
+        for engine in ("fused", "xla"):
+            results = {}
+            for label, devices in [("none", None)] + list(meshes.items()):
+                mesh = None if devices is None else make_mesh(devices)
+                pipe = AecmPipeline(MESH_B, fs, engine=engine, device=dev,
+                                    mesh=mesh)
+
+                def run():
+                    return pipe.run(far[:, :n_run * chunk],
+                                    near[:, :n_run * chunk], None,
+                                    ms[:n_run])
+
+                def steps():
+                    o, w = [], []
+                    for c in range(n_run, n_run + n_steps):
+                        s = slice(c * chunk, (c + 1) * chunk)
+                        oc, wc = pipe.step(far[:, s], near[:, s], None,
+                                           ms[c])
+                        o.append(oc)
+                        w.append(wc)
+                    return torch.cat(o, 1), torch.stack(w)
+                out_r, l_run = counted(torch, run)
+                (out_s, warn), l_step = counted(torch, steps)
+                results[label] = ((torch.cat([out_r, out_s], 1), warn,
+                                   pipe._canonical()), l_run, l_step)
+            ref = results["none"][0]
+            tag = f"{fs // 1000} kHz {engine}"
+            for label in meshes:
+                worst = max(worst, compare_trees(
+                    f"mesh {label} {tag} == no mesh", results[label][0],
+                    ref))
+            one, two = results["[cuda:0]"], results["[cuda:0, cuda:0]"]
+            for i, what in ((1, "run"), (2, "step")):
+                doubled = {k: 2 * v for k, v in one[i].items()}
+                if two[i] != doubled or one[i] != results["none"][i]:
+                    fail(f"mesh {tag} {what}: launches {two[i]} on two "
+                         f"shards, {one[i]} on one, {results['none'][i]} "
+                         "without a mesh")
+            per_step[tag] = {k: v / n_steps for k, v in one[2].items()
+                             if v}
+            log(f"  {tag}: meshes {', '.join(meshes)} == no mesh at "
+                f"B={MESH_B} (output, warnings, state); launches run "
+                f"{one[1]} -> {two[1]}, {n_steps} steps {one[2]} -> "
+                f"{two[2]} (one shard -> two)")
+    return per_step, worst
+
+
+def phase_long_call(torch, dev):
+    """The state bytes of create_batch and create_fused on the card are
+    exactly linear in the streams (1 and 1000) and under 128 KiB a stream;
+    tests/test_long_call.py's drift sequence on the card == the JAX
+    package's (golden `long.*`: each segment's output hash, the final
+    state)."""
+    import hashlib
+    from webrtc_aecm_tpu_torch import convert, fused
+    from webrtc_aecm_tpu_torch._tree import tree_leaves
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    from webrtc_aecm_tpu_torch.parallel import create_batch
+    gen = repo_tool("make_torch_golden_surface")
+    g = surface_golden("long.")
+
+    def nbytes(state):
+        return sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    sizes = {}
+    for create in (create_batch, fused.create_fused):
+        one = nbytes(create(1, 16000, device=dev))
+        thousand = nbytes(create(1000, 16000, device=dev))
+        if thousand != 1000 * one or one >= 128 * 1024:
+            fail(f"long call: {create.__name__} state {one} bytes a stream, "
+                 f"{thousand} for 1000")
+        sizes[create.__name__] = one
+    pipe = AecmPipeline(2, gen.LONG_FS, device=dev)
+    base = nbytes(pipe.state)
+    totals = {}
+    for k, (far, near, ms) in enumerate(gen.long_segments()):
+        out, launches = counted(torch, lambda: pipe.run(
+            far, near, ms_in_sndcard_buf=ms).cpu().numpy())
+        for name, v in launches.items():
+            totals[name] = totals.get(name, 0) + v
+        if nbytes(pipe.state) != base:
+            fail("long call: the state grew")
+        if hashlib.sha256(out.astype("<i2").tobytes()).hexdigest() != \
+                str(g["long.seg_sha"][k]):
+            fail(f"long call: segment {k} differs from the JAX package's")
+    if totals["frames_step"] <= 0:
+        fail(f"long call: the frames kernel did not run ({totals})")
+    n = golden_state_check("long call", convert.aecm_state_to_numpy(
+        pipe._canonical()), g, "long.state.")
+    return sizes, n, pipe.engine, totals
+
+
 def realtime_step_ms(torch, dev, engine, fs, n_warm=30, n_timed=50):
     """Wall ms per 10 ms chunk of AecmPipeline.step at 4096 streams (CUDA
     events around n_timed steps after n_warm; the desync scene without its
@@ -2089,6 +2399,38 @@ def main():
             f"({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
+        launches_dbg, n_taps = phase_debug(torch, dev)
+        log(f"[debug] AecmInstance(device=cuda).process(debug=True) at 8 "
+            f"and 16 kHz and clean: outputs, warnings and {n_taps} taps == "
+            f"the JAX package's; launches {launches_dbg} "
+            f"({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        launches_cli = phase_cli(torch, dev)
+        log(f"[cli] single, --batch and float32 pairs and python -m "
+            f"webrtc_aecm_tpu_torch == the JAX CLI's outputs; launches "
+            f"{launches_cli} ({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        erle, launches_erle = phase_erle(torch, dev)
+        log(f"[erle] {len(erle)} scenes bit-exact with the JAX package, "
+            f"ERLE {min(erle.values()):.3f} to {max(erle.values()):.3f} dB; "
+            f"launches {launches_erle} ({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        mesh_steps, worst_mesh = phase_mesh(torch, dev)
+        log(f"[mesh] B={MESH_B}: mesh == no mesh, launches per 10 ms step "
+            f"on one shard {mesh_steps}, exactly twice on two "
+            f"({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
+        sizes, n_leaves, engine, launches_long = phase_long_call(torch, dev)
+        log(f"[long_call] state bytes a stream {sizes} (linear in streams); "
+            f"drift sequence on the {engine} engine: 5 segments and "
+            f"{n_leaves} state leaves == the JAX package's; launches "
+            f"{launches_long} ({time.perf_counter() - t:.2f} s)")
+
+        t = time.perf_counter()
         rates, per, prof, extra = phase_timing(torch, dev, captures,
                                                batch_state)
         for name, (rate, wall) in rates.items():
@@ -2139,11 +2481,15 @@ def main():
         fail("a phase raised")
 
     path_err = {"frames_step": max(worst["frames"], worst_m, worst_env,
-                                   worst_wide),
-                "ring_multi_pass": max(worst["ring"], worst_m, worst_wide),
-                "ring_pass": max(worst["ring_pass"], worst_env, worst_wide),
-                "ring_gather": max(worst["gather"], worst_b, worst_8k),
-                "ring_write": max(worst["write"], worst_b, worst_8k)}
+                                   worst_wide, worst_mesh),
+                "ring_multi_pass": max(worst["ring"], worst_m, worst_wide,
+                                       worst_mesh),
+                "ring_pass": max(worst["ring_pass"], worst_env, worst_wide,
+                                 worst_mesh),
+                "ring_gather": max(worst["gather"], worst_b, worst_8k,
+                                   worst_mesh),
+                "ring_write": max(worst["write"], worst_b, worst_8k,
+                                  worst_mesh)}
     # the main paths' counts: the fused 16 kHz run (phase main), the 10 ms
     # fused steps and tails of the envelope phase, the batch-major run
     counts = {"frames_step": launches["frames"],

@@ -188,9 +188,24 @@ def test_process_warns_on_a_bad_delay():
 
 
 def test_process_debug_raises():
+    """process(debug=True) no longer raises: it returns the output, the
+    warning and the taps (numpy, (n_frames, 2, ...)), and the output and
+    state are those of the same call without the taps (the taps' values
+    are held to the JAX package in tests/test_torch_debug.py)."""
     inst = api.AecmInstance(8000, device="cpu")
-    with pytest.raises(NotImplementedError, match="debug"):
-        inst.process(np.zeros(80, np.int16), None, 40, debug=True)
+    plain = api.AecmInstance(8000, device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(8):
+        far = rng.integers(-3000, 3000, 80).astype(np.int16)
+        near = rng.integers(-3000, 3000, 80).astype(np.int16)
+        inst.buffer_farend(far)
+        plain.buffer_farend(far)
+        out, warn, taps = inst.process(near, None, 40, debug=True)
+        want, want_warn = plain.process(near, None, 40)
+        np.testing.assert_array_equal(out, want)
+        assert warn == want_warn
+        assert taps["hnl_q14"].shape == (1, 2, 65)
+        assert isinstance(taps["delay_quality"], np.ndarray)
 
 
 @pytest.mark.parametrize("make", [

@@ -252,11 +252,21 @@ def test_set_config_batch_matches_jax():
 
 
 def test_debug_option_raises():
+    """Options(debug=True) no longer raises in control.process: it adds
+    the taps, (B, n_frames, 2, ...), and leaves the output, warnings and
+    state as they are without it (the taps' values are held to the JAX
+    package in tests/test_torch_debug.py)."""
     st = tb.create_batch(2, FS, device="cpu")
     x = torch.zeros((2, 160), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="debug"):
-        control.process(st, x, None, 160, 40, FS,
-                        opts=core.Options(debug=True))
+    st_d, out_d, warn_d, taps = control.process(
+        st, x, None, 160, 40, FS, opts=core.Options(debug=True))
+    st_p, out_p, warn_p = control.process(st, x, None, 160, 40, FS)
+    assert torch.equal(out_d, out_p) and torch.equal(warn_d, warn_p)
+    assert taps["hnl_q14"].shape == (2, 2, 2, 65)
+    assert taps["delay_blocks"].shape == (2, 2, 2)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(st_d),
+                                 tree_leaves_with_path(st_p)):
+        assert torch.equal(a, b), path
 
 
 def test_default_device_is_cuda(monkeypatch):

@@ -116,7 +116,18 @@ def test_abs_approx_magnitudes_match_jax():
 
 
 def test_debug_option_raises():
+    """Options(debug=True) no longer raises in process_frame: it adds the
+    taps of both block slots, (B, 2, ...), and leaves the output and state
+    as they are without it (the taps' values are held to the JAX package
+    in tests/test_torch_debug.py)."""
     _, t_core = _start("16k")
-    x = torch.zeros((B, 80), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="debug"):
-        tcore.process_frame(t_core, x, x, opts=tcore.Options(debug=True))
+    x = torch.full((B, 80), 1000, dtype=torch.int32)
+    core_d, out_d, taps = tcore.process_frame(
+        t_core, x, x, mult=2, opts=tcore.Options(debug=True))
+    core_p, out_p = tcore.process_frame(t_core, x, x, mult=2)
+    assert torch.equal(out_d, out_p)
+    assert taps["hnl_q14"].shape == (B, 2, 65)
+    assert taps["mu"].shape == (B, 2)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(core_d),
+                                 tree_leaves_with_path(core_p)):
+        assert torch.equal(a, b), path

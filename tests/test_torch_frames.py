@@ -8,134 +8,78 @@ compared step come from the port's own serving step on the desync scene,
 so the compared steps cover streams that start mid-step and, later, live
 VAD, NLMS and comfort noise.  Compared: the output samples, the pending
 far blocks, and every core state leaf.
+
+The JAX answers come from tests/data/torch_golden_surface.npz (`frames.*`,
+written by tools/make_torch_golden_surface.py, which ran the JAX
+frames_step on the same inputs that the port's serving step gives here):
+a SHA-256 of each output and core leaf, and one over the inputs, which
+must equal the inputs captured here for the answer to apply.  No test here
+compiles a JAX function.
 """
-import functools
+import importlib.util
+import os
 import re
 from pathlib import Path
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from webrtc_aecm_tpu import fused as jf
 from webrtc_aecm_tpu_torch import fused as tf, fused_kernel
 from webrtc_aecm_tpu_torch._tree import tree_leaves_with_path
 
 torch.set_num_threads(1)
 
-FS, B, N_STEPS = 16000, 8, 20
-COMPARED = (1, 3, 5, 9, 14, 19)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "data", "torch_golden_surface.npz")
+_spec = importlib.util.spec_from_file_location(
+    "make_torch_golden_surface",
+    os.path.join(REPO, "tools", "make_torch_golden_surface.py"))
+gen = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(gen)    # numpy only at import: the scenes
 
-
-def _scene():
-    """Desync scene (40-sample offsets per stream, per-(chunk, stream)
-    sound-card delays, delay burst at chunk 24)."""
-    n_chunks = 2 * N_STEPS
-    n = n_chunks * 160
-    rng = np.random.default_rng(0)
-    t = np.arange(n + 640)
-    env = 0.5 + 0.5 * np.sin(2 * np.pi * t / (FS // 3))
-    ff = (env * rng.normal(0, 3000, t.shape)).clip(-30000, 30000)
-    far = np.stack([ff[640 - 40 * b:640 - 40 * b + n]
-                    for b in range(B)]).astype(np.int16)
-    near = (0.4 * far + rng.normal(0, 150, far.shape)
-            ).clip(-32000, 32000).astype(np.int16)
-    ms = np.full((n_chunks, B), 40, np.int32)
-    ms += 15 * (np.arange(B, dtype=np.int32) % 5)[None, :]
-    ms[24:30] += 80
-    ms[:20] += 23 * (np.arange(B, dtype=np.int32) % 7)[None, :]
-    return far, near, ms
+FS, B, N_STEPS = gen.FRAMES_FS, gen.FRAMES_B, gen.FRAMES_STEPS
+COMPARED = gen.COMPARED
 
 
 @pytest.fixture(scope="module")
-def captured(monkeypatch_module):
+def captured():
     """Run the port's serving step over the scene, recording the inputs
     and the result of frames_step at the compared steps."""
-    far, near, ms = _scene()
-    records = {}
-    orig = tf.frames_step
-    step_no = [0]
-
-    def recording(core, *args):
-        res = orig(core, *args)
-        if step_no[0] in COMPARED:
-            # copies: the serving step appends to far_history in place
-            records[step_no[0]] = (tf.clone_state(core), args,
-                                   (tf.clone_state(res[0]),) + res[1:])
-        step_no[0] += 1
-        return res
-
-    monkeypatch_module.setattr(tf, "frames_step", recording)
-    step = tf.FusedAecm(FS, 2, use_kernel=False, device="cpu")
-    st = tf.create_fused(B, FS, device="cpu")
-    st = st._replace(core=tf._to_circular_far(st.core))
-    head = 0
-    for s in range(N_STEPS):
-        lo = s * 320
-        st, head, _, _ = step(st, head,
-                              torch.as_tensor(far[:, lo:lo + 320]).int(),
-                              torch.as_tensor(near[:, lo:lo + 320]).int().T,
-                              torch.as_tensor(ms[2 * s:2 * s + 2]))
-    return records
+    return gen.frames_capture()
 
 
 @pytest.fixture(scope="module")
-def monkeypatch_module():
-    mp = pytest.MonkeyPatch()
-    yield mp
-    mp.undo()
+def golden():
+    with np.load(GOLDEN) as g:
+        return {k: g[k] for k in g.files if k.startswith("frames.")}
 
 
-@pytest.fixture(scope="module")
-def jax_frames_step():
-    core_def = jax.tree_util.tree_structure(jf.create_fused(B, FS).core)
-    run = jax.jit(functools.partial(
-        jf.frames_step, mult=2, n_frames=4, has_clean=False,
-        abs_approx=False, frames_per_chunk=2))
-    tables = jf.make_tables()
-
-    def call(core_t, far, noisy, phase, run_rows, head):
-        leaves = [jnp.asarray(x.numpy().astype(np.uint32)
-                              if p in ("seed", "de_farend.binary_history",
-                                       "de_near.binary_history")
-                              else x.numpy())
-                  for p, x in tree_leaves_with_path(core_t)]
-        core_j = jax.tree_util.tree_unflatten(core_def, leaves)
-        head_row = jnp.full((1, B), head, jnp.int32)
-        return run(core_j, tables, jnp.asarray(far.numpy()),
-                   jnp.asarray(noisy.numpy()), None,
-                   jnp.asarray(phase.numpy()), jnp.asarray(run_rows.numpy()),
-                   far_head=head_row)
-    return call
+def _assert_matches_jax(golden, case, inputs, torch_result):
+    """The inputs are the golden answer's, and the outputs, pending far
+    blocks and every core leaf equal the JAX package's, tolerance 0."""
+    p = f"frames.{case}"
+    assert gen.frames_input_digest(*inputs) == str(golden[f"{p}.in_sha"]), \
+        f"{case}: the inputs are not those of the JAX answer"
+    core_t, out_t, pend_h, pend_q = torch_result
+    got = gen.frames_outputs(core_t, out_t, pend_h, pend_q)
+    names = [str(x) for x in golden["frames.names"]]
+    assert [k.replace("core.", "", 1) for k, _ in got] == [
+        k.replace("core.", "", 1) for k in names]
+    for (name, x), want in zip(got, golden[f"{p}.sha"]):
+        assert gen.digest(x) == str(want), f"{case}: {name}"
 
 
 @pytest.mark.parametrize("step", COMPARED)
-def test_frames_step_matches_jax(captured, jax_frames_step, step):
+def test_frames_step_matches_jax(captured, golden, step):
     core_in, args, (core_t, out_t, pend_h, pend_q) = captured[step]
     (t, far, noisy, clean, phase, run_rows, mult, n_frames, has_clean,
      abs_approx, fpc, head) = args
     assert (mult, n_frames, fpc) == (2, 4, 2)
     assert clean is None and not has_clean and not abs_approx
-    _assert_matches_jax((core_t, out_t, pend_h, pend_q), jax_frames_step(
-        core_in, far, noisy, phase, run_rows, head))
-
-
-def _assert_matches_jax(torch_result, jax_result):
-    """Outputs, pending far blocks and every core leaf, tolerance 0."""
-    core_t, out_t, pend_h, pend_q = torch_result
-    core_j, out_j, ph_j, pq_j = jax_result
-    np.testing.assert_array_equal(out_t.numpy(), np.asarray(out_j))
-    np.testing.assert_array_equal(pend_h.numpy(), np.asarray(ph_j))
-    np.testing.assert_array_equal(pend_q.numpy(), np.asarray(pq_j))
-    for (path, a), b in zip(tree_leaves_with_path(core_t),
-                            jax.tree_util.tree_leaves(core_j)):
-        np.testing.assert_array_equal(
-            a.numpy().astype(np.int64) if a.dtype == torch.int64
-            else a.numpy(), np.asarray(b).astype(np.int64)
-            if a.dtype == torch.int64 else np.asarray(b),
-            err_msg=f"core leaf {path}")
+    _assert_matches_jax(golden, f"step{step}",
+                        (core_in, far, noisy, phase, run_rows, head),
+                        (core_t, out_t, pend_h, pend_q))
 
 
 def test_compared_steps_cover_startup_and_live_core(captured):
@@ -184,62 +128,19 @@ def test_frames_wrapper_takes_plain_version_on_cpu(captured):
 # ---------------------------------------------------------------------------
 
 FILLS = torch.tensor([0, 16, 32, 48, 0, 16, 32, 48], dtype=torch.int32)
-
-
-def _plant(name, core, far, noisy, phase, run_rows):
-    """Plants case `name` into copies of a warm captured call (all 8
-    streams); returns the new arguments and the circular head to use."""
-    core = tf.clone_state(core)
-    run_rows = run_rows.clone()
-    head = 20
-    near = core.de_near
-    if name == "two_equal_minima":
-        # far-end rows sliding past rows 17 and 60 during the 5 blocks are
-        # empty, so the two planted valleys stay equal
-        for r in (17, 60):
-            near.mean_bit_counts[r] = 0
-            core.de_farend.bit_counts[r - 5:r] = 0
-            core.de_farend.binary_history[r - 5:r] = 0
-    elif name == "no_candidate_under_the_limit":
-        near.mean_bit_counts[:] = 20000           # > 32 << 9, every row
-    elif name == "fresh_estimator_all_equal":
-        fresh = tf.create_fused(B, FS, device="cpu").core
-        core = core._replace(de_near=fresh.de_near,
-                             de_farend=fresh.de_farend)
-    elif name.startswith("run_rows_"):
-        rows = {"run_rows_none": [0, 0, 0, 0],
-                "run_rows_last_two": [0, 0, 1, 1],
-                "run_rows_all_four": [1, 1, 1, 1]}[name]
-        run_rows[:] = torch.tensor(rows, dtype=torch.bool)[:, None]
-        core.frame_fill[0] = FILLS
-        core.out_fill[0] = 48 - FILLS
-        core.out_fill[0, 4:] = 0                  # still zero-stuffing
-    elif name == "delay_across_the_head_wrap":
-        head = 95
-        core.fixed_delay[0] = torch.tensor([0, 4, 5, 50, 94, 97, 99, -1],
-                                           dtype=torch.int32)
-    else:
-        raise ValueError(name)
-    return core, far, noisy, phase, run_rows, head
-
-
-PLANTED = ("two_equal_minima", "no_candidate_under_the_limit",
-           "fresh_estimator_all_equal", "run_rows_none",
-           "run_rows_last_two", "run_rows_all_four",
-           "delay_across_the_head_wrap")
+PLANTED = gen.PLANTED
 
 
 @pytest.mark.parametrize("name", PLANTED)
-def test_frames_step_planted_case_matches_jax(captured, jax_frames_step,
-                                              name):
+def test_frames_step_planted_case_matches_jax(captured, golden, name):
     core_in, args, _ = captured[COMPARED[-1]]
     t, far, noisy, _, phase, run_rows, mult, n_frames, _, _, fpc, _ = args
-    core, far, noisy, phase, run_rows, head = _plant(
+    core, far, noisy, phase, run_rows, head = gen.frames_plant(
         name, core_in, far, noisy, phase, run_rows)
     res = tf.frames_step(tf.clone_state(core), t, far, noisy, None, phase,
                          run_rows, mult, n_frames, False, False, fpc, head)
-    _assert_matches_jax(res, jax_frames_step(core, far, noisy, phase,
-                                             run_rows, head))
+    _assert_matches_jax(golden, name,
+                        (core, far, noisy, phase, run_rows, head), res)
     new = res[0]
     if name == "two_equal_minima":
         # the far end is live, so the search ran: the lower of the two

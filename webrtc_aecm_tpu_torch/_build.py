@@ -17,9 +17,10 @@ Nothing here runs when the package is imported.
 
 Every kernel wrapper goes through one launch path: `require` checks each
 tensor argument by attribute reads and raises on what the kernel does not
-take (nothing is converted), and `launch` calls the C entry point on
-PyTorch's current stream and raises on its return code.  Neither
-synchronises nor reads a tensor's value on the host.
+take (nothing is converted), and `launch` calls the C entry point on the
+current stream of the tensors' card, with that card made the current CUDA
+device for the call, and raises on its return code.  Neither synchronises
+nor reads a tensor's value on the host.
 """
 from __future__ import annotations
 
@@ -111,12 +112,13 @@ _SIGNATURES = {
 }
 _entry = {}          # C entry point -> its ctypes function, set at first use
 _raw_stream = None   # device index -> the current stream's handle (an int)
+_current_device = None   # () -> the current CUDA device's index
 
 
 def load_library():
     """The loaded kernel library (built at first use), with every entry
     point's argument types bound, so that plain ints pass as pointers."""
-    global _lib, _raw_stream
+    global _lib, _raw_stream, _current_device
     if _lib is not None:
         return _lib
     import torch
@@ -134,6 +136,8 @@ def load_library():
     _raw_stream = getattr(
         torch._C, "_cuda_getCurrentRawStream",
         lambda index: torch.cuda.current_stream(index).cuda_stream)
+    _current_device = getattr(torch._C, "_cuda_getDevice",
+                              torch.cuda.current_device)
     _lib = lib
     return lib
 
@@ -151,13 +155,21 @@ def require(x, what: str, dtype, shape, device):
 
 def launch(name: str, device_index: int, *args):
     """Call C entry point `name` with `args` and the current stream of CUDA
-    device `device_index`; raise on a non-zero return code.  The library is
+    device `device_index`, with that device current (the C side sets
+    per-card kernel attributes on the current device, and a launch goes to
+    the current device's context); raise on a non-zero return code.  The
+    switch is skipped when the device is current already.  The library is
     built and its functions resolved at the first launch."""
     fn = _entry.get(name)
     if fn is None:
         load_library()
         fn = _entry[name]
-    err = fn(*args, _raw_stream(device_index))
+    if _current_device() == device_index:
+        err = fn(*args, _raw_stream(device_index))
+    else:
+        import torch
+        with torch.cuda.device(device_index):
+            err = fn(*args, _raw_stream(device_index))
     if err:
         check(err, name)
 

@@ -149,23 +149,26 @@ class AecmInstance:
 
     def process(self, nearend_noisy, nearend_clean, ms_in_sndcard_buf: int,
                 debug: bool = False):
-        """WebRtcAecm_Process.  Returns (out int16 ndarray, warning code).
-        debug=True (the JAX package's per-block debug taps) is not ported
-        yet and raises NotImplementedError (ROADMAP.md Queue 1 item 10)."""
+        """WebRtcAecm_Process.  Returns (out int16 ndarray, warning code);
+        with debug=True also a dict of per-block debug taps (hnl, supGain,
+        step size, delay, VAD, energies, delay quality) as numpy arrays of
+        shape (n_frames, 2 blocks, ...)."""
         if nearend_noisy is None:
             raise AecmError(AECM_NULL_POINTER_ERROR)
         n = np.asarray(nearend_noisy).shape[-1]
         self._validate_len(n)
-        if debug:
-            raise NotImplementedError(
-                "process(debug=True): the debug taps are not ported yet "
-                "(ROADMAP.md Queue 1 item 10)")
         clean = (None if nearend_clean is None
                  else self._row(nearend_clean))
-        self.state, out, warn = control.process(
+        res = control.process(
             self.state, self._row(nearend_noisy), clean, n,
-            int(ms_in_sndcard_buf), self.sample_rate, self.opts)
-        return out[0].cpu().numpy().astype(np.int16), int(warn[0])
+            int(ms_in_sndcard_buf), self.sample_rate,
+            self.opts._replace(debug=debug))
+        self.state, out, warn = res[:3]
+        out = out[0].cpu().numpy().astype(np.int16)
+        if debug:
+            return out, int(warn[0]), {k: v[0].cpu().numpy()
+                                       for k, v in res[3].items()}
+        return out, int(warn[0])
 
     # -- bulk helper (the demo-CLI loop, main.cc:97-147) ---------------------
     def run_file_pair(self, far_pcm, near_pcm, ms_in_sndcard_buf: int = 40):

@@ -275,7 +275,10 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
     (out_len,) for one stream (clean may be None); out_len is 80 or 160;
     ms_in_sndcard_buf a scalar or (B,), clamped to [0, 500] + 10.  Returns
     (state, out (B, out_len) int32, warning (B,)), for one stream (state,
-    out (out_len,), warning 0-d).
+    out (out_len,), warning 0-d).  With opts.debug also the debug taps, a
+    dict of (B, n_frames, 2 blocks, ...) tensors ((n_frames, 2, ...) for
+    one stream); as in the JAX package they are what the enabled branch
+    computed, in startup too.
 
     As in the JAX package both branches run for every stream and are
     merged: the startup machine, and the enabled frames gated by
@@ -288,11 +291,12 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
         rows = [None if x is None
                 else torch.as_tensor(x, device=dev).to(I32)[None]
                 for x in (nearend_noisy, nearend_clean)]
-        batch, out, warn = process(_as_batch(state), rows[0], rows[1],
-                                   out_len, ms_in_sndcard_buf, sample_rate,
-                                   opts)
-        return _from_batch(batch), out[0], warn[0]
-    core_mod._check_options(opts)
+        res = process(_as_batch(state), rows[0], rows[1], out_len,
+                      ms_in_sndcard_buf, sample_rate, opts)
+        one = (_from_batch(res[0]), res[1][0], res[2][0])
+        if opts.debug:
+            one += ({k: v[0] for k, v in res[3].items()},)
+        return one
     mult = sample_rate // 8000
     n_frames = out_len // D.FRAME_LEN
     n_blocks_10ms = n_frames // mult
@@ -319,7 +323,7 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
     # between them does: they are one launch (at both rates' serving sizes,
     # all of the call's frames), and any frames after it a second.
     split = min(est_idx + 1, n_frames)
-    ran, outs = state, []
+    ran, outs, taps = state, [], []
     for i in range(n_frames):
         if i in (0, split):
             first = i
@@ -350,12 +354,14 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
                              "known_delay", "last_delay_diff")})
         # The reference extraction never forwards the control-layer
         # knownDelay into the core (echo_control_mobile.cc:390-391).
-        core, out_frame = core_mod.process_frame(
+        res = core_mod.process_frame(
             ran.core, farend, noisy[:, i * F:(i + 1) * F],
             None if clean is None else clean[:, i * F:(i + 1) * F],
             mult=mult, opts=opts, run_mask=run_mask)
-        ran = ran._replace(core=core)
-        outs.append(out_frame)
+        ran = ran._replace(core=res[0])
+        outs.append(res[1])
+        if opts.debug:
+            taps.append(res[2])
 
     # --- merge: the enabled branch is self-gated, so only the fields that
     # the startup machine writes are selected ---
@@ -372,4 +378,8 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
         **{f: torch.where(in_startup, getattr(started, f), getattr(ran, f))
            for f in ("ec_startup", "check_buff_size", "check_buf_size_ctr",
                      "counter", "sum", "first_val", "buf_size_start")})
+    if opts.debug:
+        return state, out, warn, {
+            name: torch.stack([t[name] for t in taps], dim=1)
+            for name in taps[0]}
     return state, out, warn

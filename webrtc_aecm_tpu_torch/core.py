@@ -43,7 +43,9 @@ class Options(NamedTuple):
     robust_validation: the initial value of the per-stream runtime toggle
         (delay_estimator.enable_robust_validation); the core does not read
         it.
-    debug: the JAX package's debug taps; not ported (NotImplementedError).
+    debug: the block and frame steps also return the JAX package's debug
+        taps (its equivalent of the reference's AEC_DEBUG dumps,
+        echo_control_mobile.cc:105-136), a dict of per-stream tensors.
     """
     abs_approx: bool = False
     robust_validation: bool = False
@@ -903,24 +905,33 @@ def _process_block(state: CoreState, farend, nearend_noisy, nearend_clean,
                   "noise_est_too_high_ctr", "noise_est_ctr", "seed")})
     efw_re = torch.where(use_cng, cng_re, efw_re)
     efw_im = torch.where(use_cng, cng_im, efw_im)
-    return inverse_fft_and_window(state, efw_re, efw_im, has_clean)
-
-
-def _check_options(opts: Options):
-    if opts.debug:
-        raise NotImplementedError(
-            "Options.debug (the debug taps) is not ported yet")
+    state, out = inverse_fft_and_window(state, efw_re, efw_im, has_clean)
+    if not opts.debug:
+        return state, out
+    # the JAX package's taps, with its names and Q formats: (B, 65) for
+    # hnl, (B,) for the rest
+    taps = {
+        "hnl_q14": hnl,
+        "sup_gain_q8": sup_gain[..., 0],
+        "mu": mu[..., 0],
+        "delay_blocks": delay[..., 0],
+        "vad_far": state.current_vad_value[..., 0],
+        "near_log_energy_q8": state.near_log_energy[..., 0],
+        "echo_stored_log_energy_q8": state.echo_stored_log_energy[..., 0],
+        "delay_quality": de._last_delay_quality(state.de_near)[..., 0],
+    }
+    return state, out, taps
 
 
 def process_block(state: CoreState, farend, nearend_noisy,
                   nearend_clean=None, mult: int = 1,
                   opts: Options = DEFAULT_OPTIONS):
     """WebRtcAecm_ProcessBlock for a batch: blocks (B, 64) int32, state
-    as stored.  Returns (state, output (B, 64) int32)."""
-    _check_options(opts)
-    st, out = _process_block(lift(state), farend, nearend_noisy,
-                             nearend_clean, mult, opts)
-    return lower(st), out
+    as stored.  Returns (state, output (B, 64) int32), with opts.debug
+    also the taps dict."""
+    res = _process_block(lift(state), farend, nearend_noisy, nearend_clean,
+                         mult, opts)
+    return (lower(res[0]),) + tuple(res[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -953,8 +964,9 @@ def process_frame(state: CoreState, farend, nearend_noisy,
 
     run_mask: optional (B,) bool; where False the stream's state comes
     back unchanged (the control layer's startup gate).  Returns (state,
-    out (B, 80) int32)."""
-    _check_options(opts)
+    out (B, 80) int32), with opts.debug also the taps of both block slots,
+    each (B, 2, ...): as in the JAX package, slot 1's taps are what the
+    block computed whether or not the slot ran."""
     has_clean = nearend_clean is not None
     state = lift(state)
     if run_mask is None:
@@ -984,15 +996,17 @@ def process_frame(state: CoreState, farend, nearend_noisy,
             work_clean[..., P:2 * P], state.in_carry_clean))
 
     # block 1 runs only when the carry fill makes a second block
-    outs = []
+    outs, taps = [], []
     for k, active in enumerate((run_mask, run_mask & two_blocks)):
         blk = slice(k * P, (k + 1) * P)
-        new_state, out_b = _process_block(
+        res = _process_block(
             state, work_far[..., blk], work_noisy[..., blk],
             None if work_clean is None else work_clean[..., blk], mult,
             opts)
-        state = where_tree(active, new_state, state)
-        outs.append(torch.where(active, out_b, 0))
+        state = where_tree(active, res[0], state)
+        outs.append(torch.where(active, res[1], 0))
+        if opts.debug:
+            taps.append(res[2])
 
     # out side: place the produced samples after the carried out_fill
     # samples, zero-stuff to 80 if short (first frames only), emit 80
@@ -1010,4 +1024,8 @@ def process_frame(state: CoreState, farend, nearend_noisy,
         out_carry=gated(new_carry, state.out_carry),
         out_fill=gated(avail + stuff - D.FRAME_LEN, state.out_fill),
         out_tail=gated(out[..., -16:], state.out_tail))
+    if opts.debug:
+        return lower(state), out, {
+            name: torch.stack([t[name] for t in taps], dim=1)
+            for name in taps[0]}
     return lower(state), out

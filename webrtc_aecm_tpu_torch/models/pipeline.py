@@ -15,8 +15,10 @@ run_streams_fused) and "xla", the JAX package's name kept for the
 batch-major engine (parallel/batch.py: one ChunkStep per 10 ms), so that
 code moving between the packages changes nothing.  "auto" takes the fused
 engine on the card and the batch-major one on the CPU, as the JAX package
-takes the fused one on a TPU only.  There is no `mesh` argument: several
-cards are ROADMAP.md Queue 1 item 12.
+takes the fused one on a TPU only.  With `mesh=` (parallel/sharding.py)
+the streams split over the mesh's devices: each holds its slice of the
+state in the engine's layout and runs its own step; the outputs come back
+on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ from .. import _device, control, convert
 from .. import fused as fused_mod
 from .._tree import tree_map
 from ..parallel import batch as pbatch
+from ..parallel import sharding as psharding
 
 I32 = torch.int32
 
@@ -41,14 +44,28 @@ class AecmPipeline:
         (echo_control_mobile.h:32-35); scalars apply to all streams.
       engine: "fused", "xla" (the batch-major engine) or "auto".
       device: where the state lives (the CUDA card unless the caller asks
-        for another).
+        for another); with a mesh, its first device, which is the default.
+      mesh: keyword only, a `parallel.sharding.Mesh` (make_mesh); the state
+        and the audio split on the stream axis over its devices
+        (n_streams must divide by its size).  The JAX signature has mesh
+        fifth; here engine and device keep their places and mesh follows.
     """
 
     def __init__(self, n_streams: int, sample_rate: int = 16000,
                  cng_mode: int = 1, echo_mode: int = 3,
-                 engine: str = "auto", device=None):
+                 engine: str = "auto", device=None, *, mesh=None):
         if sample_rate not in (8000, 16000):
             raise ValueError("sample_rate must be 8000 or 16000")
+        if mesh is not None:
+            if n_streams % mesh.size:
+                raise ValueError(f"n_streams {n_streams} does not divide "
+                                 f"over a mesh of {mesh.size} devices")
+            if device is not None and \
+                    torch.device(device) != mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {mesh.devices[0]}")
+            device = mesh.devices[0]
+        self.mesh = mesh
         self.device = _device.resolve(device)
         if engine == "auto":
             engine = "fused" if self.device.type == "cuda" else "xla"
@@ -64,14 +81,25 @@ class AecmPipeline:
 
     # -- engine layout adapters ---------------------------------------------
     def _canonical(self) -> control.AecmState:
-        """The batch-leading AecmState view of the current state."""
+        """The batch-leading AecmState view of the current state (with a
+        mesh, the shards gathered on the first device)."""
+        state = self.state
+        if self.mesh is not None:
+            state = psharding.gather_streams(
+                state, self.mesh, psharding.fused_state_spec()
+                if self.engine == "fused" else 0)
         if self.engine == "fused":
-            return fused_mod.from_fused_state(self.state)
-        return self.state
+            return fused_mod.from_fused_state(state)
+        return state
 
     def _set_canonical(self, state: control.AecmState) -> None:
-        self.state = (fused_mod.to_fused_state(state)
-                      if self.engine == "fused" else state)
+        if self.engine == "fused":
+            state = fused_mod.to_fused_state(state)
+            if self.mesh is not None:
+                state = psharding.shard_streams_fused(state, self.mesh)
+        elif self.mesh is not None:
+            state = psharding.shard_streams(state, self.mesh)
+        self.state = state
 
     # -- config -------------------------------------------------------------
     def set_config(self, cng_mode, echo_mode) -> None:
@@ -123,7 +151,13 @@ class AecmPipeline:
     # -- serving ------------------------------------------------------------
     def _get_step(self, has_clean: bool):
         if has_clean not in self._step:
-            if self.engine == "fused":
+            if self.mesh is not None:
+                make = (psharding.make_sharded_step_fused
+                        if self.engine == "fused"
+                        else psharding.make_sharded_step)
+                self._step[has_clean] = make(self.sample_rate, self.mesh,
+                                             has_clean=has_clean)
+            elif self.engine == "fused":
                 self._step[has_clean] = fused_mod.make_fused_chunk_step(
                     self.sample_rate, has_clean=has_clean,
                     device=self.device)
@@ -154,12 +188,30 @@ class AecmPipeline:
         dropped (the reference demo does the same, main.cc:121-123)."""
         far, near = self._audio(far), self._audio(near)
         clean = None if clean is None else self._audio(clean)
-        if self.engine == "fused":
-            self.state, out = fused_mod.run_streams_fused(
-                self.state, far, near, self.sample_rate, ms_in_sndcard_buf,
-                clean=clean)
-        else:
-            self.state, out = pbatch.run_streams(
-                self.state, far, near, self.sample_rate, ms_in_sndcard_buf,
-                clean=clean)
-        return out
+        run = (fused_mod.run_streams_fused if self.engine == "fused"
+               else pbatch.run_streams)
+        if self.mesh is None:
+            self.state, out = run(self.state, far, near, self.sample_rate,
+                                  ms_in_sndcard_buf, clean=clean)
+            return out
+        # each device runs its slice; ms goes to (n_chunks, n_streams)
+        # so that it splits on the stream axis
+        n_chunks = near.shape[-1] // self.chunk
+        ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32)
+        if ms.ndim == 1 and ms.shape[0] != self.n_streams:
+            ms = ms[:, None]
+        ms = ms.expand(n_chunks, self.n_streams)
+        by_stream = psharding.StreamSharding(self.mesh, 0)
+        pieces = [by_stream.split(x) for x in (far, near)] + (
+            [] if clean is None else [by_stream.split(clean)])
+        ms = psharding.StreamSharding(self.mesh, 1).split(ms)
+        new, outs = [], []
+        for k, dev in enumerate(self.mesh.devices):
+            with psharding.on_device(dev):
+                st, out = run(self.state[k], pieces[0][k], pieces[1][k],
+                              self.sample_rate, ms[k],
+                              clean=None if clean is None else pieces[2][k])
+            new.append(st)
+            outs.append(out)
+        self.state = new
+        return by_stream.gather(outs)
