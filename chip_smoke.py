@@ -2,17 +2,22 @@
 """Drive the PyTorch/CUDA port's serving paths on one NVIDIA GPU and check it.
 
 Run from the repository root:  python3 chip_smoke.py
-With `--frames` it stops after phase 3 and the frames kernel's times (at
-1024, 4096 and 16384 streams on the main path's mode, and at 4096 in each
-mode), and prints no result line: to compare two versions of the kernel,
-unpack the other commit into an ignored directory (`git archive <commit> |
-tar -x -C build/other`) and run both in turns, back to back, in one process
-after the other on one card.
+With `--graphs` it runs phases 1, 2 and 16 (the compiled steps) and prints
+no result line.  With `--frames` it stops after phase 3 and the frames
+kernel's times (at 1024, 4096 and 16384 streams on the main path's mode,
+and at 4096 in each mode), and prints no result line: to compare two
+versions of the kernel, unpack the other commit into an ignored directory
+(`git archive <commit> | tar -x -C build/other`) and run both in turns,
+back to back, in one process after the other on one card.
 
 The port's paths are driven at 4096 streams: the fused engine
 (`run_streams_fused`, and its 10 ms real-time step through
 `AecmPipeline.step`), the batch-major engine (`parallel.batch.run_streams`,
-one `ChunkStep` per 10 ms), and both through `AecmPipeline`.
+one `ChunkStep` per 10 ms), and both through `AecmPipeline`.  Their steps
+are compiled (webrtc_aecm_tpu_torch/compiled.py: captured once per input
+signature as a CUDA graph and replayed), so every phase but the plain
+references (`PlainRing` runs them eagerly) drives the replays; the launch
+counts come from the replays' bookkeeping.
 
 Phases (each prints its seconds; any failure exits non-zero before the
 final line):
@@ -97,7 +102,21 @@ final line):
                linear in the streams and under 128 KiB a stream;
                tests/test_long_call.py's drift sequence == the JAX
                package's (long.*)
- 16. timing    streams served at 1x real time on each engine's kernel and
+ 16. graphs    every compiled entry point at 4096 streams -- AecmPipeline.step
+               on both engines at 8 and 16 kHz, single and clean, and on a
+               [cuda:0, cuda:0] mesh, run_streams_fused with a tail span,
+               run_streams, AecmInstance with its debug taps -- == the
+               eager path (graphs disabled) in outputs and every state leaf
+               and == the golden files (their streams tiled to 4096), the
+               launches exact through the replay bookkeeping, one graph per
+               key (a failed capture fails the run: nothing falls back to
+               eager); then eager against graph: the real-time step's wall
+               per chunk on both engines at 8 and 16 kHz, streams at 1x
+               real time of run_streams_fused and run_streams, the eager
+               step's device time (profiler), capture seconds, host syncs
+               in one step (torch.cuda.set_sync_debug_mode) and peak device
+               memory
+ 17. timing    streams served at 1x real time on each engine's kernel and
                plain paths at 16 kHz and on the kernel paths at 8 kHz (CUDA
                events); the real-time step's wall ms per 10 ms chunk at 8
                and 16 kHz on both engines; a batch-major chunk's kernel
@@ -330,18 +349,24 @@ def bound_ms(n_bytes):
 
 class PlainRing:
     """Within the block, the batch-major engine's ring wrappers are their
-    plain versions (the plain path on the card; nothing is counted)."""
+    plain versions (the plain path on the card; nothing is counted), and
+    the compiled steps run eagerly: a replay would run the kernels it
+    captured, whatever the wrappers are now."""
 
     def __enter__(self):
+        from webrtc_aecm_tpu_torch import compiled
         from webrtc_aecm_tpu_torch.ops import ring_buffer, ring_kernels
         self.rk = ring_kernels
         self.orig = (ring_kernels.ring_read, ring_kernels.ring_write)
+        self.eager = compiled.disable_graphs()
+        self.eager.__enter__()
         ring_kernels.ring_read = ring_buffer.read_frames_plain
         ring_kernels.ring_write = ring_buffer.write_plain
         return self
 
     def __exit__(self, *exc):
         self.rk.ring_read, self.rk.ring_write = self.orig
+        self.eager.__exit__(*exc)
         return False
 
 
@@ -1685,6 +1710,322 @@ def phase_long_call(torch, dev):
     return sizes, n, pipe.engine, totals
 
 
+def tile_streams(x, b, axis=0):
+    """x (a golden file's B-stream array) repeated along its stream axis to
+    b streams."""
+    reps = [1] * x.ndim
+    reps[axis] = b // x.shape[axis]
+    return np.tile(x, reps)
+
+
+def golden_tiled_check(tag, out, state, g, name, b):
+    """out (b, n) and every leaf of a state (batch-major, or fused, as the
+    golden entry holds it) == golden file g's entry `name`, its streams
+    tiled to b (the fused core's lane-major leaves on their last axis)."""
+    from webrtc_aecm_tpu_torch import convert, fused
+    from webrtc_aecm_tpu_torch._tree import tree_leaves_with_path
+    if not np.array_equal(out.cpu().numpy(), tile_streams(
+            g[f"{name}.out"].astype(np.int32), b)):
+        fail(f"{tag}: outputs differ from the JAX package's")
+    lane_major = isinstance(state, fused.FusedState)
+    n = 0
+    for path, leaf in tree_leaves_with_path(
+            convert.fused_state_to_numpy(state) if lane_major
+            else convert.aecm_state_to_numpy(state)):
+        ref = g[f"{name}.state.{path}"]
+        axis = -1 if lane_major and path.startswith("core.") else 0
+        if leaf.dtype != ref.dtype or not np.array_equal(
+                leaf, tile_streams(ref, b, axis)):
+            fail(f"{tag}: state leaf {path} differs from the JAX package's")
+        n += 1
+    return n
+
+
+def graphs_pipeline_steps(torch, pipe, audio, ms, n_chunks):
+    """pipe.step over n_chunks chunks of audio ((far, near[, clean]) on the
+    card); returns (out, warns, the batch-major state)."""
+    outs, warns = [], []
+    for c in range(n_chunks):
+        cols = slice(c * pipe.chunk, (c + 1) * pipe.chunk)
+        o, w = pipe.step(audio[0][:, cols], audio[1][:, cols],
+                         audio[2][:, cols] if len(audio) > 2 else None,
+                         ms[c])
+        outs.append(o)
+        warns.append(w)
+    return torch.cat(outs, 1), torch.stack(warns), pipe._canonical()
+
+
+def phase_graphs(torch, dev):
+    """Every compiled entry point at 4096 streams (the sharded step on
+    [cuda:0, cuda:0] too): captured once per key and replayed == the eager
+    step (graphs disabled) in outputs, warnings and every state leaf, and
+    == the JAX package's answers (the golden files' streams tiled to 4096);
+    the launches exact through the replay bookkeeping; one graph per key.
+    Then eager against graph: the real-time step's wall per chunk, streams
+    at 1x real time, the eager step's device time by the profiler, capture
+    seconds, host syncs a step and peak device memory."""
+    from webrtc_aecm_tpu_torch import AecmInstance, compiled, fused
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    from webrtc_aecm_tpu_torch.parallel import batch, make_mesh
+    g = np.load(os.path.join(REPO, "tests", "data", "torch_golden_batch.npz"))
+    configs = golden_configs(g)
+    worst, graphs, n_leaves = 0.0, {}, 0
+
+    def dev_i32(x, axis=0):
+        return None if x is None else torch.as_tensor(
+            tile_streams(x, B_FULL, axis), device=dev).int()
+
+    def want(n, engine, shards=1):
+        keys = (("frames_step", "ring_pass") if engine == "fused"
+                else ("ring_write", "ring_gather"))
+        return {k: (n * shards if k in keys else 0) for k in (
+            "frames_step", "ring_multi_pass", "ring_pass", "ring_write",
+            "ring_gather")}
+
+    # AecmPipeline.step: both engines, 8 and 16 kHz, single and clean; and
+    # the sharded step on [cuda:0, cuda:0] at 16 kHz
+    cases = [(engine, name, None) for engine in ("fused", "xla")
+             for name in sorted(configs)]
+    cases += [(engine, "16k", [dev, dev]) for engine in ("fused", "xla")]
+    for engine, name, mesh_devs in cases:
+        fs, far, near, ms, clean = configs[name]
+        audio = [dev_i32(x) for x in (far, near, clean) if x is not None]
+        ms_t = dev_i32(ms, 1)
+        n_chunks = ms.shape[0]
+        tag = (f"graphs AecmPipeline.step {engine} {name}"
+               + ("" if mesh_devs is None else " on [cuda:0, cuda:0]"))
+
+        def make():
+            return AecmPipeline(B_FULL, fs, engine=engine, device=dev,
+                                mesh=None if mesh_devs is None
+                                else make_mesh(mesh_devs))
+        pipe = make()
+        res_g, launches = counted(torch, lambda: graphs_pipeline_steps(
+            torch, pipe, audio, ms_t, n_chunks))
+        shards = 1 if mesh_devs is None else len(mesh_devs)
+        if launches != want(n_chunks, engine, shards):
+            fail(f"{tag}: launches {launches}, expected "
+                 f"{want(n_chunks, engine, shards)}")
+        step = pipe._get_step(clean is not None)
+        counts = ([s.n_graphs for s in step.steps] if mesh_devs is not None
+                  else [step.n_graphs])
+        if counts != [1] * shards:
+            fail(f"{tag}: graphs per key {counts}, expected one a shard")
+        with compiled.disable_graphs():
+            eager = make()
+            res_e = graphs_pipeline_steps(torch, eager, audio, ms_t,
+                                          n_chunks)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_trees(f"{tag} == eager", res_g, res_e))
+        n_leaves += golden_tiled_check(tag, res_g[0], res_g[2], g, name,
+                                       B_FULL)
+        key = tag.removeprefix("graphs ")
+        graphs[key] = sum(s.capture_seconds for s in (
+            step.steps if mesh_devs is not None else [step]))
+        log(f"  {tag}: == eager and == the JAX package's ({n_chunks} "
+            f"steps); launches {launches}; {shards} graph(s), capture "
+            f"{graphs[key]:.2f} s")
+
+    # run_streams_fused (a tail span) and run_streams
+    env = repo_tool("make_torch_golden_envelope")
+    ge = np.load(os.path.join(REPO, "tests", "data",
+                              "torch_golden_envelope.npz"))
+    fs8, n_chunks, burst, seed, _, _ = env.RSF["8k"]
+    f8, n8, _ = env.scene(fs8, env.B, n_chunks, seed)
+    f8, n8 = dev_i32(f8), dev_i32(n8)
+    ms8 = dev_i32(env.desync_ms(n_chunks, env.B, burst), 1)
+    runs = {
+        "run_streams_fused 8 kHz, 9 steps of 4 chunks and a 1-chunk tail": (
+            lambda: fused.run_streams_fused(
+                fused.create_fused(B_FULL, fs8, device=dev), f8, n8, fs8,
+                ms8), ge, "rsf.8k", {"frames_step": 10, "ring_multi_pass": 9,
+                                      "ring_pass": 1, "ring_write": 0,
+                                      "ring_gather": 0})}
+    _, far, near, ms, clean = configs["16k_clean"]
+    a16 = [dev_i32(x) for x in (far, near, clean)]
+    ms16 = dev_i32(ms, 1)
+    runs["run_streams 16 kHz clean"] = (
+        lambda: batch.run_streams(batch.create_batch(
+            B_FULL, 16000, device=dev), a16[0], a16[1], 16000, ms16,
+            clean=a16[2]),
+        g, "16k_clean", want(ms.shape[0], "xla"))
+    keys = [fused._span_step(8000, c, True, dev, False, circ)
+            for c, circ in ((4, True), (1, False))] + [
+        batch._chunk_step(16000, True, dev)]
+    before = [k.n_graphs for k in keys]    # earlier phases' signatures
+    capture_s = sum(k.capture_seconds for k in keys)
+    for tag, (run, gold, name, expect) in runs.items():
+        (fin_g, out_g), launches = counted(torch, run)
+        if launches != expect:
+            fail(f"graphs {tag}: launches {launches}, expected {expect}")
+        with compiled.disable_graphs():
+            fin_e, out_e = run()
+        torch.cuda.synchronize()
+        worst = max(worst, compare_trees(f"graphs {tag} == eager",
+                                         (out_g, fin_g), (out_e, fin_e)))
+        n_leaves += golden_tiled_check(f"graphs {tag}", out_g, fin_g, gold,
+                                       name, B_FULL)
+        log(f"  {tag}: == eager and == the JAX package's; launches "
+            f"{launches}")
+    # a second run of the same signatures captures nothing new
+    after = [k.n_graphs for k in keys]
+    for run, *_ in runs.values():
+        run()
+    if [k.n_graphs for k in keys] != after or any(
+            a - b not in (0, 1) for a, b in zip(after, before)):
+        fail(f"graphs: the run steps' graphs went {before} -> {after} -> "
+             f"{[k.n_graphs for k in keys]}, more than one a key")
+    graphs["runs"] = sum(k.capture_seconds for k in keys) - capture_s
+
+    # AecmInstance, debug taps among the graph's outputs
+    gen = repo_tool("make_torch_golden_surface")
+    gs = surface_golden("dbg.16k_clean.")
+    fs, calls = gen.DBG["16k_clean"][:2]
+    far, near, clean, ms = gen.dbg_inputs("16k_clean")
+    n = fs // 100
+    insts = [AecmInstance(fs, device=dev) for _ in range(2)]
+
+    def serve(inst):
+        res = []
+        for c in range(calls):
+            cols = slice(c * n, (c + 1) * n)
+            inst.buffer_farend(far[cols])
+            res.append(inst.process(near[cols], clean[cols], int(ms[c]),
+                                    debug=True))
+        return res
+    res_g, launches = counted(torch, lambda: serve(insts[0]))
+    if launches != want(calls, "xla"):
+        fail(f"graphs AecmInstance: launches {launches}")
+    with compiled.disable_graphs():
+        res_e = serve(insts[1])
+    for c, ((o, w, t), (oe, we, te)) in enumerate(zip(res_g, res_e)):
+        if not (np.array_equal(o, oe) and w == we
+                and np.array_equal(o, gs["dbg.16k_clean.out"][c])):
+            fail(f"graphs AecmInstance: call {c} output differs")
+        for k in t:
+            if not (np.array_equal(t[k], te[k]) and np.array_equal(
+                    t[k], gs[f"dbg.16k_clean.tap.{k}"][c])):
+                fail(f"graphs AecmInstance: call {c} tap {k} differs")
+    worst = max(worst, compare_trees("graphs AecmInstance state == eager",
+                                     insts[0].state, insts[1].state))
+    if (insts[0]._buffer_farend.n_graphs, insts[0]._process.n_graphs) \
+            != (1, 1):
+        fail("graphs AecmInstance: more than one graph a key")
+    graphs["AecmInstance"] = (insts[0]._buffer_farend.capture_seconds
+                              + insts[0]._process.capture_seconds)
+    log(f"  AecmInstance 16 kHz clean, {calls} calls with debug taps: == "
+        f"eager and == the JAX package's; launches {launches}")
+    timing = graphs_timing(torch, dev)
+    return worst, n_leaves, graphs, timing
+
+
+def graphs_timing(torch, dev):
+    """Eager against graph at 4096 streams (CUDA events; the device time of
+    the eager step by the profiler, its host syncs by
+    torch.cuda.set_sync_debug_mode, peak device memory by the allocator)."""
+    import contextlib
+    import warnings
+    from webrtc_aecm_tpu_torch import compiled, fused
+    from webrtc_aecm_tpu_torch.models import AecmPipeline
+    modes = {"eager": compiled.disable_graphs,
+             "graph": contextlib.nullcontext}
+    out = {"realtime": {}, "rates": {}, "device_ms": {}, "host_us": {},
+           "syncs": {}, "peak_mb": {}}
+    for fs in (8000, 16000):
+        for engine in ("fused", "xla"):
+            for mode, ctx in modes.items():
+                with ctx():
+                    warm, timed = ((30, 50) if engine == "fused" or
+                                   mode == "graph" else (5, 20))
+                    out["realtime"][(engine, fs, mode)] = realtime_step_ms(
+                        torch, dev, engine, fs, warm, timed)
+    far, near = bench_scene(B_FULL, 1.0)
+    far_t = torch.as_tensor(np.ascontiguousarray(far), device=dev).int()
+    near_t = torch.as_tensor(np.ascontiguousarray(near), device=dev).int()
+    for mode, ctx in modes.items():
+        with ctx():
+            st = fused.create_fused(B_FULL, FS, device=dev)
+            fused.run_streams_fused(st, far_t, near_t, FS, 40)   # warm-up
+            out["rates"][("run_streams_fused", mode)] = engine_rate(
+                torch, lambda: fused.run_streams_fused(
+                    st, far_t, near_t, FS, 40), 1.0) + (1.0,)
+            n = 100 if mode == "graph" else 20     # chunks
+            cols = slice(0, n * CHUNK)
+            run_batch(torch, dev, far_t[:, cols], near_t[:, cols], FS, 40)
+            out["rates"][("run_streams", mode)] = engine_rate(
+                torch, lambda: run_batch(torch, dev, far_t[:, cols],
+                                         near_t[:, cols], FS, 40),
+                n / 100) + (n / 100,)
+    for engine in ("fused", "xla"):
+        x = far_t[:, :CHUNK], near_t[:, :CHUNK]
+        with compiled.disable_graphs():
+            pipe = AecmPipeline(B_FULL, FS, engine=engine, device=dev)
+            pipe.step(*x)
+            out["device_ms"][engine] = device_ms(
+                torch, lambda: pipe.step(*x), 3 if engine == "xla" else 10)
+        for mode, ctx in modes.items():
+            with ctx():
+                pipe = AecmPipeline(B_FULL, FS, engine=engine, device=dev)
+                pipe.step(*x)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode(1)
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        pipe.step(*x)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                out["syncs"][(engine, mode)] = sum(
+                    "synchroniz" in str(w.message) for w in caught)
+                out["host_us"][(engine, mode)] = host_us(
+                    torch, lambda: pipe.step(*x),
+                    50 if engine == "fused" or mode == "graph" else 5)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                pipe = AecmPipeline(B_FULL, FS, engine=engine, device=dev)
+                for _ in range(3):
+                    pipe.step(*x)
+                torch.cuda.synchronize()
+                out["peak_mb"][(engine, mode)] = (
+                    torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+                del pipe
+    return out
+
+
+def log_graphs(n_leaves, graphs, timing, card, seconds):
+    """The [graphs] phase's lines."""
+    log(f"[graphs] every compiled entry point at B={B_FULL} == eager and "
+        f"== the JAX package's ({n_leaves} state leaves), launches exact, "
+        f"one graph per key ({seconds:.2f} s)")
+    for what, s in graphs.items():
+        log(f"[graphs] capture (warm-up, capture, first replay): {what}: "
+            f"{s:.2f} s")
+    for (engine, fs, mode), ms_c in timing["realtime"].items():
+        log(f"[graphs] real-time step, {engine} engine, {fs // 1000} kHz, "
+            f"B={B_FULL}, {mode}: {ms_c:.3f} ms of wall per 10 ms chunk on "
+            f"{card}")
+    for (what, mode), (rate, wall, audio_s) in timing["rates"].items():
+        log(f"[graphs] {what}, {mode}: {rate:.1f} streams at 1x real time "
+            f"({wall / audio_s * 1000:.3f} ms per 1 s of audio x {B_FULL} "
+            f"streams, bench scene, {audio_s:.1f} s timed) on {card}")
+    for engine, ms_d in timing["device_ms"].items():
+        log(f"[graphs] eager real-time step, {engine} engine, 16 kHz: "
+            f"{'not measured' if ms_d is None else f'{ms_d:.3f} ms'} of "
+            f"device work per step (profiler; the replay's floor) on {card}")
+    for (engine, mode), us in timing["host_us"].items():
+        log(f"[graphs] host time of one AecmPipeline.step, {engine} "
+            f"engine, 16 kHz, {mode}: {us:.1f} us (the host's clock over "
+            f"back-to-back steps) on {card}")
+    for (engine, mode), n in timing["syncs"].items():
+        log(f"[graphs] host syncs in one AecmPipeline.step, {engine} "
+            f"engine, 16 kHz, {mode}: {n}")
+    for (engine, mode), mb in timing["peak_mb"].items():
+        log(f"[graphs] peak device memory over a new AecmPipeline and 3 "
+            f"steps, {engine} engine, 16 kHz, {mode}: {mb:.1f} MiB "
+            f"allocated (B={B_FULL})")
+
+
 def realtime_step_ms(torch, dev, engine, fs, n_warm=30, n_timed=50):
     """Wall ms per 10 ms chunk of AecmPipeline.step at 4096 streams (CUDA
     events around n_timed steps after n_warm; the desync scene without its
@@ -2332,6 +2673,13 @@ def main():
         log(f"[build] {info.get('path')} nvcc {info.get('seconds', 0):.1f} s "
             f"({time.perf_counter() - t:.2f} s)")
 
+        if "--graphs" in sys.argv[1:]:
+            t = time.perf_counter()
+            log_graphs(*phase_graphs(torch, dev)[1:], card,
+                       time.perf_counter() - t)
+            log(f"[total] {time.perf_counter() - t_all:.1f} s")
+            return 0
+
         t = time.perf_counter()
         worst, captures = phase_kernels(torch, dev)
         log(f"[kernels] bit-exact at B={B_FULL} "
@@ -2431,6 +2779,10 @@ def main():
             f"{launches_long} ({time.perf_counter() - t:.2f} s)")
 
         t = time.perf_counter()
+        worst_graphs, *rest = phase_graphs(torch, dev)
+        log_graphs(*rest, card, time.perf_counter() - t)
+
+        t = time.perf_counter()
         rates, per, prof, extra = phase_timing(torch, dev, captures,
                                                batch_state)
         for name, (rate, wall) in rates.items():
@@ -2481,15 +2833,15 @@ def main():
         fail("a phase raised")
 
     path_err = {"frames_step": max(worst["frames"], worst_m, worst_env,
-                                   worst_wide, worst_mesh),
+                                   worst_wide, worst_mesh, worst_graphs),
                 "ring_multi_pass": max(worst["ring"], worst_m, worst_wide,
-                                       worst_mesh),
+                                       worst_mesh, worst_graphs),
                 "ring_pass": max(worst["ring_pass"], worst_env, worst_wide,
-                                 worst_mesh),
+                                 worst_mesh, worst_graphs),
                 "ring_gather": max(worst["gather"], worst_b, worst_8k,
-                                   worst_mesh),
+                                   worst_mesh, worst_graphs),
                 "ring_write": max(worst["write"], worst_b, worst_8k,
-                                  worst_mesh)}
+                                  worst_mesh, worst_graphs)}
     # the main paths' counts: the fused 16 kHz run (phase main), the 10 ms
     # fused steps and tails of the envelope phase, the batch-major run
     counts = {"frames_step": launches["frames"],

@@ -7,11 +7,14 @@ real-time step, a single or a clean near input) and the batch-major engine
 `AecmPipeline` (models/pipeline.py, on one device or split over several
 with `mesh=`, parallel/sharding.py), the host utilities and the demo CLI
 (utils/, `python -m webrtc_aecm_tpu_torch far.wav near.wav`), in PyTorch,
-with the TPU kernels rewritten as CUDA C++ for Hopper (csrc/).  The entry
+with the TPU kernels rewritten as CUDA C++ for Hopper (csrc/).  The steps
+that the JAX package jits are compiled here (compiled.py: captured once
+per input signature as a CUDA graph on the card and replayed).  The entry
 points build on the CUDA card unless the caller passes device="cpu".  It
 imports torch and numpy, never jax.
 """
 from . import api
+from . import compiled
 from . import control
 from . import core
 from . import defines
@@ -25,6 +28,7 @@ from .fused import (FusedAecm, FusedState, create_fused,  # noqa: F401
 from .models import AecmPipeline
 
 __all__ = [
-    "api", "control", "core", "defines", "delay_estimator", "models",
-    "parallel", "utils", "AecmInstance", "AecmState", "AecmPipeline",
+    "api", "compiled", "control", "core", "defines", "delay_estimator",
+    "models", "parallel", "utils", "AecmInstance", "AecmState",
+    "AecmPipeline",
 ]

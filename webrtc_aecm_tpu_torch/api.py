@@ -27,6 +27,7 @@ from . import _device, control
 from . import core as core_mod
 from . import defines as D
 from . import delay_estimator as de
+from .compiled import compile_step
 from .parallel import batch as pbatch
 
 # Error codes (echo_control_mobile.h:23-30)
@@ -65,7 +66,13 @@ class AecmInstance:
     Mirrors the reference lifecycle: construction = Create+Init, then
     `buffer_farend(far)` + `process(near_noisy, near_clean, ms)` per 10 ms.
     The state is a batch of one on `device` (the CUDA card unless the
-    caller asks for another).
+    caller asks for another).  `buffer_farend` and `process` are compiled
+    per call signature (compiled.py: a CUDA graph each on the card, with
+    the debug taps among process's outputs; the JAX package jits them per
+    key) and donate the state: after a call self.state holds the graphs'
+    state buffers, which the next call updates in place.  The setters
+    (set_config, set_control, init_echo_path) stay eager, and the next
+    call copies what they made into the buffers.
     """
 
     def __init__(self, sample_rate: int = 8000, cng_mode: int = 1,
@@ -85,6 +92,11 @@ class AecmInstance:
             self.state = self.state._replace(
                 core=self.state.core._replace(de_near=de_near))
         self.set_config(cng_mode, echo_mode)
+        self._buffer_farend = compile_step(
+            control.buffer_farend, carry=((0, None),), donate=True,
+            name="AecmInstance.buffer_farend")
+        self._process = compile_step(control.process, donate=True,
+                                     name="AecmInstance.process")
 
     def set_control(self, delay: int = -1, nlp_flag: int = 1) -> None:
         """WebRtcAecm_Control (aecm_core.cc:477-482): fix the far/near
@@ -144,8 +156,8 @@ class AecmInstance:
         err = self.get_buffer_farend_error(farend)
         if err != 0:
             raise AecmError(err)
-        self.state = pbatch.buffer_farend_batch(self.state,
-                                                self._row(farend), self.mult)
+        self.state = self._buffer_farend(self.state, self._row(farend),
+                                         self.mult)
 
     def process(self, nearend_noisy, nearend_clean, ms_in_sndcard_buf: int,
                 debug: bool = False):
@@ -159,10 +171,11 @@ class AecmInstance:
         self._validate_len(n)
         clean = (None if nearend_clean is None
                  else self._row(nearend_clean))
-        res = control.process(
-            self.state, self._row(nearend_noisy), clean, n,
-            int(ms_in_sndcard_buf), self.sample_rate,
-            self.opts._replace(debug=debug))
+        ms = torch.full((1,), int(ms_in_sndcard_buf), dtype=I32,
+                        device=self.device)
+        res = self._process(self.state, self._row(nearend_noisy), clean, n,
+                            ms, self.sample_rate,
+                            self.opts._replace(debug=debug))
         self.state, out, warn = res[:3]
         out = out[0].cpu().numpy().astype(np.int16)
         if debug:

@@ -178,7 +178,7 @@ def _startup_machine(state, n_blocks_10ms: int, mult: int):
     first_val = torch.where(state.counter == 0, ms, state.first_val)
     acc = torch.where(state.counter == 0, 0, state.sum)
     thresh = torch.clamp(
-        torch.tensor(0.2, dtype=F32, device=ms.device) * ms.to(F32),
+        _device.const(0.2, F32, ms.device) * ms.to(F32),
         min=float(D.SAMP_MS_NB))
     stable = (first_val - ms).abs().to(F32) < thresh
     acc = torch.where(stable, acc + ms, acc)
@@ -303,9 +303,8 @@ def process(state: AecmState, nearend_noisy, nearend_clean, out_len: int,
     has_clean = nearend_clean is not None
     F = D.FRAME_LEN
 
-    ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32,
-                         device=state.ec_startup.device).expand_as(
-                             state.ec_startup)
+    ms = _device.as_int32(ms_in_sndcard_buf, state.ec_startup.device
+                          ).expand_as(state.ec_startup)
     warn = torch.where((ms < 0) | (ms > 500),
                        D.AECM_BAD_PARAMETER_WARNING, 0).to(I32)
     state = state._replace(ms_in_sndcard_buf=(ms.clamp(0, 500) + 10

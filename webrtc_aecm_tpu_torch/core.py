@@ -60,9 +60,9 @@ def set_control(state, delay, nlp_flag):
     delay estimator) and the NLP toggle, per stream."""
     dev = state.fixed_delay.device
     return state._replace(
-        fixed_delay=torch.as_tensor(delay, dtype=I32, device=dev).expand_as(
+        fixed_delay=_device.as_int32(delay, dev).expand_as(
             state.fixed_delay).clone(),
-        nlp_flag=torch.as_tensor(nlp_flag, dtype=I32, device=dev).expand_as(
+        nlp_flag=_device.as_int32(nlp_flag, dev).expand_as(
             state.nlp_flag).clone())
 
 

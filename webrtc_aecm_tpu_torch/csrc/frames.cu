@@ -8,17 +8,19 @@ extern "C" int aecm_frames_step(void* const* leaves, int n_leaves,
                                 const void* clean, const void* phase,
                                 const void* run_rows, const void* win128,
                                 const void* fwr, const void* fws, void* out,
-                                void* pend_hist, void* pend_q, int B,
-                                int head, int mult, int fpc, int n_frames,
+                                void* pend_hist, void* pend_q,
+                                const void* head, int B, int mult, int fpc,
+                                int n_frames,
                                 int has_clean, int abs_approx, int H,
                                 int cap, void* stream) {
   using namespace aecm;
   if (n_leaves != N_LEAVES) return -1;
-  // head >= 0: the circular history, whose step is whole blocks dividing
-  // the history; head < 0: the newest-first history, any frame count
-  const bool circular = head >= 0;
+  // head (a device int in [0, MAX_DELAY)): the circular history, whose
+  // step is whole blocks dividing the history; null: the newest-first
+  // history, any frame count
+  const bool circular = head != nullptr;
   const int span = n_frames * FRAME_LEN;
-  if (B <= 0 || head >= MAX_DELAY || fpc <= 0 || n_frames < 1 ||
+  if (B <= 0 || fpc <= 0 || n_frames < 1 ||
       n_frames % fpc != 0 || H <= 1 || cap < 1 ||
       (circular && (span % PART_LEN != 0 ||
                     MAX_DELAY % (span / PART_LEN) != 0))) {
@@ -36,8 +38,8 @@ extern "C" int aecm_frames_step(void* const* leaves, int n_leaves,
             (const bool*)run_rows, (const int*)win128,
             (const int*)fwr,      (const int*)fws,
             (int*)out,            (int*)pend_hist,
-            (int*)pend_q,         B,
-            head,                 mult,
+            (int*)pend_q,         (const int*)head,
+            B,                    mult,
             fpc,                  n_frames,
             abs_approx != 0,      Geo{H, cap},
             0};

@@ -141,7 +141,8 @@ struct Inputs {
   int* out;              // (n_frames * 80, B)
   int* pend_hist;        // (n_slots * 40, B): the circular history's output,
   int* pend_q;           // (n_slots, B)       and the general instances' store
-  int B, head, mult, fpc, n_frames, abs_approx;
+  const int* head;       // the circular history's head (device memory)
+  int B, mult, fpc, n_frames, abs_approx;
   Geo geo;               // the general instances' layout
   int lg;                // log2 of the general instances' streams a block
 };
@@ -364,6 +365,7 @@ struct Ctx {
   Geo g;            // the delay estimator's rows (constants in the main
                     // path's instances)
   int lookahead;    // the stream's lookahead (general instances)
+  int head;         // the circular history's head
 };
 
 __device__ __forceinline__ int warp_max(int v) {
@@ -1164,7 +1166,7 @@ __device__ __forceinline__ int history_block(const Ctx& c, int s, int delay) {
   const int idx_old = delay - (s + 1);
   if (delay >= MAX_DELAY || idx_old < 0) return -1;
   if (!CIRC) return idx_old;
-  const int tgt = c.in.head + (MAX_DELAY - 1) - idx_old;
+  const int tgt = c.head + (MAX_DELAY - 1) - idx_old;
   return tgt >= MAX_DELAY ? tgt - MAX_DELAY : tgt;
 }
 
@@ -1903,7 +1905,11 @@ frames_step_kernel(const __grid_constant__ Leaves lv,
     const int b = b0 + warp;
     const Ctx c{streams + warp * words, fwr, fws, win, lv, in, b,
                 (int)(threadIdx.x & 31), geo,
-                GEN ? ((const int*)lv.p[NE_LOOKAHEAD])[b] : 0};
+                GEN ? ((const int*)lv.p[NE_LOOKAHEAD])[b] : 0,
+                // read from device memory, so that one CUDA graph of a
+                // step serves every head; reduced into range so that no
+                // head reads outside the history
+                CIRC ? (*in.head % MAX_DELAY + MAX_DELAY) % MAX_DELAY : 0};
     run_stream<CLEAN, CIRC, GEN>(c);
   }
   __syncthreads();

@@ -150,7 +150,7 @@ def lower(state):
 def _per_estimator(v, like):
     """v as int32 on the state's device, shaped like the scalar leaf
     `like` (0-d, or (B,) on a batch)."""
-    return torch.as_tensor(v, dtype=I32, device=like.device).expand_as(like)
+    return _device.as_int32(v, like.device).expand_as(like)
 
 
 def soft_reset_farend(state: FarendState, delay_shift) -> FarendState:

@@ -1090,7 +1090,7 @@ def _emit_frame_f(core, produced, two_blocks, run_mask):
 def frames_step(core, t: Tables, far_frames, noisy_frames, clean_frames,
                 phase_all, run_rows, mult: int, n_frames: int,
                 has_clean: bool, abs_approx: bool = False,
-                frames_per_chunk: int = 1, far_head: Optional[int] = None):
+                frames_per_chunk: int = 1, far_head=None):
     """The full n_frames-frame core path, lane-major, as the slot-major
     block schedule of the JAX package's `frames_step`: block s is always
     samples [64s, 64s + 64) of the stream carry + payload, and
@@ -1101,10 +1101,10 @@ def frames_step(core, t: Tables, far_frames, noisy_frames, clean_frames,
     run_rows: (n_frames, B) bool, non-decreasing along frames and constant
     within a chunk.  far_head None: the far history is newest-first and the
     step's new blocks are merged into it, returns (core, out (n_frames*80,
-    B)).  far_head an int (the circular history's head, the same for every
-    stream): the history leaves pass through untouched and the step returns
-    (core, out, pend_hist (n_slots*40, B), pend_q (n_slots, B)) for the
-    caller to append.  This is the plain version of the frames kernel."""
+    B)).  far_head an int or a 0-d int32 tensor (the circular history's
+    head, the same for every stream): the history leaves pass through
+    untouched and the step returns (core, out, pend_hist (n_slots*40, B),
+    pend_q (n_slots, B)) for the caller to append.  This is the plain version of the frames kernel."""
     F, P = D.FRAME_LEN, D.PART_LEN
     n = n_frames
     n_slots = _n_slots_for(n)
@@ -1292,16 +1292,17 @@ def _to_circular_far(core_f):
         far_q_domains=torch.flip(core_f.far_q_domains, (0,)))
 
 
-def _from_circular_far(core_f, head: int):
-    """Circular order at `head` -> newest-first: nf[d] =
-    circ[(head - 1 - d) mod MAX_DELAY] = flip(roll(circ, -head))."""
+def _from_circular_far(core_f, head):
+    """Circular order at `head` (an int or a 0-d int32 tensor) ->
+    newest-first: nf[d] = circ[(head - 1 - d) mod MAX_DELAY], one gather
+    (no read of the head on the host)."""
     b = core_f.far_history.shape[-1]
     h3 = core_f.far_history.view(D.MAX_DELAY, FAR_HIST_ROWS, b)
-    h3 = torch.flip(torch.roll(h3, D.MAX_DELAY - head, 0), (0,))
-    q = torch.flip(torch.roll(core_f.far_q_domains, D.MAX_DELAY - head, 0),
-                   (0,))
-    return core_f._replace(far_history=h3.reshape(-1, b).contiguous(),
-                           far_q_domains=q.contiguous())
+    idx = torch.remainder(head - 1 - torch.arange(
+        D.MAX_DELAY, device=h3.device), D.MAX_DELAY)
+    return core_f._replace(
+        far_history=h3.index_select(0, idx).reshape(-1, b),
+        far_q_domains=core_f.far_q_domains.index_select(0, idx))
 
 
 def _check_envelope(sample_rate: int, use_kernel: bool, state=None,
@@ -1323,10 +1324,14 @@ class FusedAecm(nn.Module):
 
     forward(state, far, noisy[, clean], ms) -> (state, out, warn), or with
     circular_far forward(state, head, far, noisy[, clean], ms) -> (state,
-    head', out, warn) where head is the circular far history's head (an
-    int).  far is (B, cps*chunk) batch-leading; noisy / clean / out are the
-    same shape, or (cps*chunk, B) lane-major when lane_major_io; ms a
-    scalar, (B,) or (cps, B); warn (B,) at cps = 1, else (cps, B).
+    head', out, warn) where head is the circular far history's head: a 0-d
+    int32 tensor on the state's device, as the JAX package carries it in its
+    scan (the frames kernel reads it from device memory, the new blocks are
+    placed by index, so a CUDA graph of the step serves every head), or an
+    int, which comes back an int.  far is (B, cps*chunk) batch-leading;
+    noisy / clean / out are the same shape, or (cps*chunk, B) lane-major
+    when lane_major_io; ms a scalar, (B,) or (cps, B); warn (B,) at cps =
+    1, else (cps, B).
     circular_far needs an exact-block schedule (cps*chunk a multiple of
     64, the block count dividing 100); left None it is taken wherever the
     schedule is exact-block (the serving defaults, 2 chunks at 16 kHz and 4
@@ -1375,6 +1380,10 @@ class FusedAecm(nn.Module):
         for name, v in make_tables(device, _n_slots_for(self.n_frames)
                                    )._asdict().items():
             self.register_buffer(name, v, persistent=False)
+        # the rows of the circular history that a step's new blocks take,
+        # from the head's
+        self.register_buffer("pend_rows", torch.arange(
+            self.s_blocks * FAR_HIST_ROWS, device=device), persistent=False)
 
     @property
     def tables(self) -> Tables:
@@ -1491,7 +1500,7 @@ class FusedAecm(nn.Module):
                         self.has_clean)
         b = ctrl.ec_startup.shape[0]
         dev = ctrl.ec_startup.device
-        ms_all = torch.as_tensor(ms, dtype=I32, device=dev).expand(cps, b)
+        ms_all = _device.as_int32(ms, dev).expand(cps, b)
 
         # --- pointer phase: the exact per-chunk control sequence ---
         ring_data0 = ctrl.farend_buf.data
@@ -1571,9 +1580,10 @@ class FusedAecm(nn.Module):
                                     pend_q[:S - r]], dim=0)
                 ph = torch.where(rot == r, cand_h, ph)
                 pq = torch.where(rot == r, cand_q, pq)
-            core_f.far_history[head * FAR_HIST_ROWS:
-                               (head + S) * FAR_HIST_ROWS] = ph
-            core_f.far_q_domains[head:head + S] = pq
+            core_f.far_history.index_copy_(
+                0, head * FAR_HIST_ROWS + self.pend_rows, ph)
+            core_f.far_q_domains.index_copy_(
+                0, head + self.pend_rows[:S], pq)
             head = (head + S) % D.MAX_DELAY
         else:
             core_f, out_lm = res
@@ -1618,6 +1628,24 @@ def clone_state(state):
     return tree_map(lambda x: x.clone(), state)
 
 
+@functools.lru_cache(maxsize=16)
+def _span_step(sample_rate: int, cps: int, use_kernel: bool, device,
+               has_clean: bool, circular: bool):
+    """run_streams_fused's step for spans of `cps` chunks, compiled
+    (compiled.py: one CUDA graph per input signature on the card, the
+    JAX package's jitted scan body); it donates its state, which the loop
+    passes back.  Kept, as jit keeps its cache: each signature holds a copy
+    of a state in its static buffers."""
+    from .compiled import compile_step
+    step = FusedAecm(sample_rate, cps, use_kernel, device, has_clean,
+                     lane_major_io=True, circular_far=circular)
+    return compile_step(step, carry=((0, 0), (1, 1)) if circular
+                        else ((0, 0),), donate=True,
+                        name=f"fused {sample_rate} Hz, {cps} chunks"
+                        f"{', clean' if has_clean else ''}"
+                        f"{'' if use_kernel else ', plain'}")
+
+
 def run_streams_fused(state: FusedState, far, near, sample_rate: int,
                       ms_in_sndcard_buf=40, use_kernel: bool = True,
                       clean=None, chunks_per_step: Optional[int] = None):
@@ -1629,10 +1657,15 @@ def run_streams_fused(state: FusedState, far, near, sample_rate: int,
     chunks that it does not divide runs as one final smaller step.  A span
     whose step is whole blocks dividing the history keeps the far history
     circular.  Returns (state, out (n_streams, n_chunks*chunk) int32).  The
-    input state is not modified (the loop runs on a copy).
+    input state is not modified (the loop runs on a copy), and what it
+    returns is its own.
 
-    On CUDA tensors with use_kernel=True every step runs the ring kernel
-    and the frames kernel once each."""
+    Each span replays one compiled step per step (compiled.py: the step
+    captured once per input signature as a CUDA graph on the card; eager
+    under compiled.disable_graphs() and on the CPU), with the circular
+    history's head carried as a 0-d int32 tensor, as the JAX package's
+    scan carries it.  On CUDA tensors with use_kernel=True every step runs
+    the ring kernel and the frames kernel once each."""
     chunk = min(160, sample_rate // 100)
     dev = state.ctrl.ec_startup.device
     far = torch.as_tensor(far, device=dev).to(I32)
@@ -1664,13 +1697,12 @@ def run_streams_fused(state: FusedState, far, near, sample_rate: int,
             continue
         width = c * chunk
         circ = _exact_block(width)
-        step = FusedAecm(sample_rate, c, use_kernel, dev, has_clean,
-                         lane_major_io=True, circular_far=circ)
+        step = _span_step(sample_rate, c, use_kernel, dev, has_clean, circ)
         near_lm = near[:, lo * chunk:hi * chunk].T
         clean_lm = clean[:, lo * chunk:hi * chunk].T if has_clean else None
         if circ:
             st = st._replace(core=_to_circular_far(st.core))
-        head = 0
+        head = torch.zeros((), dtype=I32, device=dev)
         for s in range(lo, hi, c):
             cols = slice((s - lo) * chunk, (s - lo) * chunk + width)
             xs = (far[:, s * chunk:s * chunk + width], near_lm[cols]) + (
@@ -1684,4 +1716,4 @@ def run_streams_fused(state: FusedState, far, near, sample_rate: int,
             st = st._replace(core=_from_circular_far(st.core, head))
     out = (torch.cat(outs, dim=0).T.contiguous() if outs
            else near.new_zeros((n_streams, 0)))
-    return st, out
+    return clone_state(st), out

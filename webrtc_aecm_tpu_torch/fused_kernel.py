@@ -167,7 +167,9 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, clean_frames,
     tensors, which updates every core leaf in place (far_history and
     far_q_domains too when far_head is None: the newest-first merge).
     Returns what frames_step returns: (core, out) with far_head None,
-    (core, out, pend_hist, pend_q) with the circular head far_head.
+    (core, out, pend_hist, pend_q) with the circular head far_head (a 0-d
+    int32 tensor on the step's device, which the kernel reads from device
+    memory, or an int, filled into one here).
 
     The kernel takes its arguments as they stand and converts nothing:
     every core leaf in its layout (the delay estimator's history size and
@@ -219,6 +221,10 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, clean_frames,
     for name in ("win128", "fwr", "fws"):
         x = getattr(t, name)
         _build.require(x, f"table {name}", I32, x.shape, dev)
+    if circular:
+        if not torch.is_tensor(far_head):
+            far_head = torch.full((), far_head, dtype=I32, device=dev)
+        _build.require(far_head, "far_head", I32, (), dev)
     out = torch.empty(rows, dtype=I32, device=dev)
     # the step's new far blocks: the circular history's output, and the
     # general instance's store of them for the newest-first merge
@@ -233,9 +239,10 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, clean_frames,
         phase_all.data_ptr(), run_rows.data_ptr(), t.win128.data_ptr(),
         t.fwr.data_ptr(), t.fws.data_ptr(), out.data_ptr(),
         pend_hist.data_ptr() if pending else None,
-        pend_q.data_ptr() if pending else None, b,
-        far_head if circular else -1, mult, frames_per_chunk, n_frames,
-        int(has_clean), int(abs_approx), history, cap)
+        pend_q.data_ptr() if pending else None,
+        far_head.data_ptr() if circular else None, b, mult,
+        frames_per_chunk, n_frames, int(has_clean), int(abs_approx), history,
+        cap)
     _FRAMES.launches += 1
     if circular:
         return core, out, pend_hist, pend_q

@@ -81,7 +81,7 @@ def move_read_ptr(rb: RingBuffer, element_count) -> RingBuffer:
     cap = rb.capacity
     free = available_write(rb)
     readable = available_read(rb)
-    ec = torch.as_tensor(element_count, dtype=I32, device=readable.device)
+    ec = _device.as_int32(element_count, readable.device)
     ec = torch.maximum(torch.minimum(ec, readable), -free)
     read_pos = rb.read_pos + ec
     over = read_pos > cap

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import tables
+from .. import _device, tables
 
 I32 = torch.int32
 I64 = torch.int64
@@ -94,8 +94,7 @@ def norm_w16(a):
 
 
 def _count(c, like):
-    return c if torch.is_tensor(c) else torch.tensor(c, dtype=I32,
-                                                     device=like.device)
+    return c if torch.is_tensor(c) else _device.const(c, I32, like.device)
 
 
 def shift_w32(x, c):

@@ -15,6 +15,8 @@ have_data and the pointer advance).  Everything else is plain PyTorch.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -39,7 +41,7 @@ def create_batch(n_streams: int, sample_rate: int = 8000,
 
 
 def _per_stream(x, n: int, like):
-    return torch.as_tensor(x, dtype=I32, device=like.device).expand(n)
+    return _device.as_int32(x, like.device).expand(n)
 
 
 def set_config_batch(state: control.AecmState, cng_mode,
@@ -122,6 +124,18 @@ def make_chunk_step(sample_rate: int, has_clean: bool = False,
     return ChunkStep(sample_rate, has_clean, device)
 
 
+@functools.lru_cache(maxsize=8)
+def _chunk_step(sample_rate: int, has_clean: bool, device):
+    """run_streams' ChunkStep, compiled (compiled.py: one CUDA graph per
+    input signature on the card, the JAX package's jitted scan body); it
+    donates its state, which the loop passes back.  Kept, as jit keeps its
+    cache: each signature holds a copy of a state in its static buffers."""
+    from ..compiled import compile_step
+    return compile_step(ChunkStep(sample_rate, has_clean, device),
+                        donate=True, name=f"batch-major {sample_rate} Hz"
+                        f"{', clean' if has_clean else ''}")
+
+
 def run_streams(state: control.AecmState, far, near, sample_rate: int,
                 ms_in_sndcard_buf=40, clean=None):
     """Whole signals for a batch of streams, one ChunkStep per 10 ms chunk,
@@ -131,7 +145,10 @@ def run_streams(state: control.AecmState, far, near, sample_rate: int,
     None); samples past the last whole chunk are dropped.
     ms_in_sndcard_buf: a scalar, (n_streams,), (n_chunks,) or (n_chunks,
     n_streams).  Returns (final state, out (n_streams, n_chunks * chunk)
-    int32).  The input state is not modified (the loop runs on a copy)."""
+    int32).  The input state is not modified (the loop runs on a copy), and
+    what it returns is its own.  Each chunk replays one compiled ChunkStep
+    (compiled.py: captured once per input signature as a CUDA graph on the
+    card; eager under compiled.disable_graphs() and on the CPU)."""
     dev = state.ec_startup.device
     chunk = min(160, sample_rate // 100)
     far = torch.as_tensor(far, device=dev).to(I32)
@@ -148,7 +165,7 @@ def run_streams(state: control.AecmState, far, near, sample_rate: int,
     if clean is not None:
         clean = torch.as_tensor(clean, device=dev).to(I32)
 
-    step = ChunkStep(sample_rate, clean is not None, device=dev)
+    step = _chunk_step(sample_rate, clean is not None, dev)
     st = tree_map(lambda x: x.clone(), state)
     outs = []
     for c in range(n_chunks):
@@ -158,4 +175,4 @@ def run_streams(state: control.AecmState, far, near, sample_rate: int,
         outs.append(out)
     out = (torch.cat(outs, dim=-1) if outs
            else near.new_zeros((n_streams, 0)))
-    return st, out
+    return tree_map(lambda x: x.clone(), st), out

@@ -28,7 +28,6 @@ from .. import _device
 from .._tree import tree_map
 
 STREAM_AXIS = "streams"
-I32 = torch.int32
 
 
 class Mesh(NamedTuple):
@@ -172,10 +171,18 @@ class ShardedStep:
     streams: step(shards, far, noisy[, clean], ms) -> (shards, out, warn).
     The audio ((n_streams, chunk), batch-leading) is split here; ms is a
     scalar or (n_streams,); out and warn come back joined on the mesh's
-    first device.  Each shard's step runs with its device current."""
+    first device.  Each shard's step runs with its device current, and is
+    compiled (compiled.py): one CUDA graph per shard, captured on the
+    shard's card, as the JAX package jits its shard_map.  With donate the
+    shards returned are the graphs' state buffers (an owner that passes
+    them back, as AecmPipeline does); without, copies."""
 
-    def __init__(self, steps, mesh: Mesh, has_clean: bool):
-        self.steps = steps
+    def __init__(self, steps, mesh: Mesh, has_clean: bool,
+                 donate: bool = False):
+        from ..compiled import compile_step
+        self.steps = [compile_step(s, donate=donate,
+                                   name=f"shard {k} on {d}")
+                      for k, (s, d) in enumerate(zip(steps, mesh.devices))]
         self.mesh = mesh
         self.n_audio = 3 if has_clean else 2
 
@@ -185,13 +192,13 @@ class ShardedStep:
                             "tensors, ms)")
         sh = StreamSharding(self.mesh, 0)
         audio = [sh.split(x) for x in args[:-1]]
-        ms = torch.as_tensor(args[-1], dtype=I32)
-        ms = ([ms] * self.mesh.size if ms.ndim == 0 else sh.split(ms))
+        ms = torch.as_tensor(args[-1])
+        ms = [ms] * self.mesh.size if ms.ndim == 0 else sh.split(ms)
         new, outs, warns = [], [], []
         for k, (step, dev) in enumerate(zip(self.steps, self.mesh.devices)):
             with on_device(dev):
                 st, out, warn = step(shards[k], *(a[k] for a in audio),
-                                     ms[k].to(dev))
+                                     _device.as_int32(ms[k], dev))
             new.append(st)
             outs.append(out)
             warns.append(warn)
@@ -199,7 +206,8 @@ class ShardedStep:
 
 
 def make_sharded_step(sample_rate: int, mesh: Mesh, has_clean: bool = False,
-                      axis_name: str = STREAM_AXIS) -> ShardedStep:
+                      axis_name: str = STREAM_AXIS,
+                      donate: bool = False) -> ShardedStep:
     """The batch-major 10 ms step (parallel.batch.ChunkStep), one per mesh
     device, over shard_streams' pieces.  Where the JAX package jits one
     shard_map program, the port calls each device's step in turn; the
@@ -207,12 +215,13 @@ def make_sharded_step(sample_rate: int, mesh: Mesh, has_clean: bool = False,
     from .batch import make_chunk_step
     _check_axis(mesh, axis_name)
     return ShardedStep([make_chunk_step(sample_rate, has_clean, device=d)
-                        for d in mesh.devices], mesh, has_clean)
+                        for d in mesh.devices], mesh, has_clean, donate)
 
 
 def make_sharded_step_fused(sample_rate: int, mesh: Mesh,
                             use_kernel=None, has_clean: bool = False,
-                            axis_name: str = STREAM_AXIS) -> ShardedStep:
+                            axis_name: str = STREAM_AXIS,
+                            donate: bool = False) -> ShardedStep:
     """The fused 10 ms step (fused.make_fused_chunk_step: one frames and
     one ring launch per device a step on the card), one per mesh device,
     over shard_streams_fused's pieces; audio batch-leading (B, chunk).
@@ -223,4 +232,4 @@ def make_sharded_step_fused(sample_rate: int, mesh: Mesh,
     return ShardedStep([fused.make_fused_chunk_step(
         sample_rate, has_clean=has_clean,
         use_kernel=True if use_kernel is None else use_kernel, device=d)
-        for d in mesh.devices], mesh, has_clean)
+        for d in mesh.devices], mesh, has_clean, donate)
