@@ -109,13 +109,13 @@ final line):
                eager path (graphs disabled) in outputs and every state leaf
                and == the golden files (their streams tiled to 4096), the
                launches exact through the replay bookkeeping, one graph per
-               key (a failed capture fails the run: nothing falls back to
-               eager); then eager against graph: the real-time step's wall
-               per chunk on both engines at 8 and 16 kHz, streams at 1x
-               real time of run_streams_fused and run_streams, the eager
-               step's device time (profiler), capture seconds, host syncs
-               in one step (torch.cuda.set_sync_debug_mode) and peak device
-               memory
+               key and one replay per call (a failed capture fails the run:
+               nothing falls back to eager); then eager against graph: the
+               real-time step's wall per chunk on both engines at 8 and 16
+               kHz, streams at 1x real time of run_streams_fused and
+               run_streams, the eager step's device time (profiler),
+               capture seconds, host syncs in one step
+               (torch.cuda.set_sync_debug_mode) and peak device memory
  17. timing    streams served at 1x real time on each engine's kernel and
                plain paths at 16 kHz and on the kernel paths at 8 kHz (CUDA
                events); the real-time step's wall ms per 10 ms chunk at 8
@@ -1340,20 +1340,23 @@ def phase_wide(torch, dev):
 ENVELOPE_CHUNKS, ENVELOPE_STEPS = 105, 20
 
 
+# each kernel's name here, and its launch counter in tracing.counters()
+LAUNCH_KEYS = {"frames_step": "frames_kernel_call.launches",
+               "ring_multi_pass": "ring_multi_pass.launches",
+               "ring_pass": "ring_pass.launches",
+               "ring_write": "ring_write.launches",
+               "ring_gather": "ring_read.launches"}
+
+
 def counted(torch, fn):
-    """fn() with every kernel's launch counter set to 0 just before and
-    read just after."""
-    from webrtc_aecm_tpu_torch import fused_kernel
-    from webrtc_aecm_tpu_torch.ops import ring_kernels as rk
-    wrappers = {"frames_step": fused_kernel.frames_kernel_call,
-                "ring_multi_pass": rk.ring_multi_pass,
-                "ring_pass": rk.ring_pass, "ring_write": rk.ring_write,
-                "ring_gather": rk.ring_read}
-    for w in wrappers.values():
-        w.launches = 0
+    """fn(), and the launches of each kernel that it made: the port's
+    counters (tracing.counters()) read just before and just after."""
+    from webrtc_aecm_tpu_torch import tracing
+    before = tracing.counters()
     res = fn()
     torch.cuda.synchronize()
-    return res, {k: w.launches for k, w in wrappers.items()}
+    after = tracing.counters()
+    return res, {k: after[c] - before[c] for k, c in LAUNCH_KEYS.items()}
 
 
 def phase_envelope(torch, dev):
@@ -1760,7 +1763,8 @@ def phase_graphs(torch, dev):
     [cuda:0, cuda:0] too): captured once per key and replayed == the eager
     step (graphs disabled) in outputs, warnings and every state leaf, and
     == the JAX package's answers (the golden files' streams tiled to 4096);
-    the launches exact through the replay bookkeeping; one graph per key.
+    the launches exact through the replay bookkeeping; one graph per key
+    and one replay per call.
     Then eager against graph: the real-time step's wall per chunk, streams
     at 1x real time, the eager step's device time by the profiler, capture
     seconds, host syncs a step and peak device memory."""
@@ -1807,10 +1811,13 @@ def phase_graphs(torch, dev):
             fail(f"{tag}: launches {launches}, expected "
                  f"{want(n_chunks, engine, shards)}")
         step = pipe._get_step(clean is not None)
-        counts = ([s.n_graphs for s in step.steps] if mesh_devs is not None
-                  else [step.n_graphs])
+        shard_steps = step.steps if mesh_devs is not None else [step]
+        counts = [s.n_graphs for s in shard_steps]
         if counts != [1] * shards:
             fail(f"{tag}: graphs per key {counts}, expected one a shard")
+        replays = [s.replays for s in shard_steps]
+        if replays != [n_chunks] * shards:
+            fail(f"{tag}: replays {replays}, expected {n_chunks} a shard")
         with compiled.disable_graphs():
             eager = make()
             res_e = graphs_pipeline_steps(torch, eager, audio, ms_t,
@@ -1820,8 +1827,7 @@ def phase_graphs(torch, dev):
         n_leaves += golden_tiled_check(tag, res_g[0], res_g[2], g, name,
                                        B_FULL)
         key = tag.removeprefix("graphs ")
-        graphs[key] = sum(s.capture_seconds for s in (
-            step.steps if mesh_devs is not None else [step]))
+        graphs[key] = sum(s.capture_seconds for s in shard_steps)
         log(f"  {tag}: == eager and == the JAX package's ({n_chunks} "
             f"steps); launches {launches}; {shards} graph(s), capture "
             f"{graphs[key]:.2f} s")

@@ -38,7 +38,10 @@ A replay runs no Python, so the kernel wrappers' launch counters
 (fused_kernel.frames_kernel_call.launches, ops/ring_kernels.py) cannot
 count it: the capture records how many launches of each kernel the graph
 holds, and each replay adds them.  The warm-up and the capture count
-nothing.
+nothing.  Each step counts its replays (`replays`; on the CPU's
+static-buffer path, the runs of the body in their place), and names its
+stages with tracing.py's spans (`aecm.compiled.*`); tracing.counters()
+sums the counters over every live step.
 
 A failed capture or replay raises and names the step; nothing falls back
 to the eager step on the card.  `disable_graphs()` (as `jax.disable_jit()`)
@@ -63,6 +66,8 @@ import time
 from typing import NamedTuple, Optional
 
 import torch
+
+from . import tracing
 
 _mode = threading.local()     # .graphs (bool), .cpu_static (bool)
 
@@ -167,21 +172,12 @@ def _span(spec, path) -> slice:
 # Launch counters
 # ---------------------------------------------------------------------------
 
-def _counter_owners():
-    """The kernel wrappers whose `.launches` count launches of the CUDA
-    kernels."""
-    from . import fused_kernel
-    from .ops import ring_kernels
-    return (fused_kernel._FRAMES, ring_kernels._RING, ring_kernels._PASS,
-            ring_kernels._WRITE, ring_kernels._READ)
-
-
 def _counts():
-    return [w.launches for w in _counter_owners()]
+    return [w.launches for w in tracing.LAUNCH_COUNTERS]
 
 
 def _set_counts(counts):
-    for w, n in zip(_counter_owners(), counts):
+    for w, n in zip(tracing.LAUNCH_COUNTERS, counts):
         w.launches = n
 
 
@@ -212,7 +208,7 @@ class _Entry:
         self.out_spec = None
         self.carried = None     # [(input leaves, output leaves)] slices
         self.donated = None     # output leaves returned as static buffers
-        self.launches = None
+        self.launches = ()      # (kernel wrapper, launches in the graph)
         self.capture_s = 0.0
 
 
@@ -231,6 +227,8 @@ class CompiledStep:
         self.donate = donate
         self.name = name or getattr(fn, "__name__", type(fn).__name__)
         self._entries = {}
+        self.replays = 0
+        tracing.live_steps.add(self)
 
     @property
     def n_graphs(self) -> int:
@@ -244,37 +242,47 @@ class CompiledStep:
         return sum(e.capture_s for e in self._entries.values())
 
     def __call__(self, *args):
-        leaves = []
-        spec = _flatten(args, leaves)
-        dev = next((x.device for x in leaves if torch.is_tensor(x)), None)
-        if (not graphs_enabled() or dev is None
-                or (dev.type == "cpu"
-                    and not getattr(_mode, "cpu_static", False))):
+        with tracing.span("compiled.key"):
+            leaves = []
+            spec = _flatten(args, leaves)
+            dev = next((x.device for x in leaves if torch.is_tensor(x)),
+                       None)
+            eager = (not graphs_enabled() or dev is None
+                     or (dev.type == "cpu"
+                         and not getattr(_mode, "cpu_static", False)))
+            entry = None if eager else self._entries.get(spec)
+        if eager:
             return self.fn(*args)
         if dev.type not in ("cuda", "cpu"):
             raise RuntimeError(f"compiled step {self.name}: no graphs on "
                                f"{dev}")
-        entry = self._entries.get(spec)
         if entry is None:
-            entry = self._first_call(spec, leaves, dev)
+            with tracing.span("compiled.capture"):
+                entry = self._first_call(spec, leaves, dev)
         else:
-            for buf, x in zip(entry.static_in, leaves):
-                if torch.is_tensor(x) and x is not buf:
-                    buf.copy_(x)
-            if entry.graph is None:
-                self._body(entry, spec)
-            else:
-                self._replay(entry)
-        return self._result(entry)
+            with tracing.span("compiled.copy_in"):
+                for buf, x in zip(entry.static_in, leaves):
+                    if torch.is_tensor(x) and x is not buf:
+                        buf.copy_(x)
+            with tracing.span("compiled.replay"):
+                self._replay(entry, spec)
+        with tracing.span("compiled.outputs"):
+            return self._result(entry)
 
-    def _replay(self, entry: _Entry):
-        """Replay the graph, and count the launches it holds."""
-        try:
-            entry.graph.replay()
-        except Exception as e:
-            raise RuntimeError(f"compiled step {self.name}: the replay "
-                               f"failed: {e}") from e
-        _set_counts([a + b for a, b in zip(_counts(), entry.launches)])
+    def _replay(self, entry: _Entry, spec):
+        """Replay the graph, and count the replay and the launches the
+        graph holds; on the CPU run the body in the replay's place."""
+        if entry.graph is None:
+            self._body(entry, spec)
+        else:
+            try:
+                entry.graph.replay()
+            except Exception as e:
+                raise RuntimeError(f"compiled step {self.name}: the replay "
+                                   f"failed: {e}") from e
+            for w, n in entry.launches:
+                w.launches += n
+        self.replays += 1
 
     def _body(self, entry: _Entry, spec):
         """fn on the static buffers, the carried outputs written back into
@@ -315,7 +323,7 @@ class CompiledStep:
                                     ).copy_(x) if torch.is_tensor(x) else x
                         for x in leaves])
         if dev.type == "cpu":
-            self._body(entry, spec)
+            self._replay(entry, spec)
             self._entries[spec] = entry
             return entry
         before = _counts()
@@ -332,7 +340,9 @@ class CompiledStep:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=_pool(dev)):
                 self._body(entry, spec)
-            entry.launches = [a - b for a, b in zip(_counts(), warm)]
+            entry.launches = tuple(
+                (w, a - b) for w, a, b in zip(tracing.LAUNCH_COUNTERS,
+                                              _counts(), warm) if a != b)
         except Exception as e:
             _set_counts(before)
             raise RuntimeError(f"compiled step {self.name}: the capture "
@@ -341,7 +351,7 @@ class CompiledStep:
         entry.graph = graph
         entry.capture_s = time.perf_counter() - t0
         self._entries[spec] = entry
-        self._replay(entry)
+        self._replay(entry, spec)
         return entry
 
     def _result(self, entry: _Entry):

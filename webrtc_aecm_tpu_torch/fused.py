@@ -41,6 +41,7 @@ from . import tables
 from ._tree import tree_map
 from .ops import ring_buffer as rbuf
 from .ops import spl
+from .tracing import span
 
 I32 = torch.int32
 I64 = torch.int64
@@ -1666,54 +1667,57 @@ def run_streams_fused(state: FusedState, far, near, sample_rate: int,
     history's head carried as a 0-d int32 tensor, as the JAX package's
     scan carries it.  On CUDA tensors with use_kernel=True every step runs
     the ring kernel and the frames kernel once each."""
-    chunk = min(160, sample_rate // 100)
-    dev = state.ctrl.ec_startup.device
-    far = torch.as_tensor(far, device=dev).to(I32)
-    near = torch.as_tensor(near, device=dev).to(I32)
-    has_clean = clean is not None
-    if has_clean:
-        clean = torch.as_tensor(clean, device=dev).to(I32)
-    n_streams, n_samples = near.shape
-    n_chunks = n_samples // chunk
-    cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
-    cps = max(1, min(cps, n_chunks))
-    n_super, rem = divmod(n_chunks, cps)
-    spans = [(0, n_super * cps, cps)] + ([(n_super * cps, n_chunks, rem)]
-                                         if rem else [])
-    _check_envelope(sample_rate, use_kernel, state, has_clean)
+    with span("run"):
+        chunk = min(160, sample_rate // 100)
+        dev = state.ctrl.ec_startup.device
+        with span("run.inputs"):
+            far = torch.as_tensor(far, device=dev).to(I32)
+            near = torch.as_tensor(near, device=dev).to(I32)
+            has_clean = clean is not None
+            if has_clean:
+                clean = torch.as_tensor(clean, device=dev).to(I32)
+            n_streams, n_samples = near.shape
+            n_chunks = n_samples // chunk
+            cps = chunks_per_step or (4 if sample_rate == 8000 else 2)
+            cps = max(1, min(cps, n_chunks))
+            n_super, rem = divmod(n_chunks, cps)
+            spans = [(0, n_super * cps, cps)] + (
+                [(n_super * cps, n_chunks, rem)] if rem else [])
+            _check_envelope(sample_rate, use_kernel, state, has_clean)
 
-    ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32, device=dev)
-    if ms.ndim == 0 or (ms.ndim == 1 and ms.shape[0] == n_streams):
-        ms_t = ms.expand(n_chunks, n_streams)
-    elif ms.ndim == 1:
-        ms_t = ms[:, None].expand(n_chunks, n_streams)
-    else:
-        ms_t = ms
-
-    st = clone_state(state)
-    outs = []
-    for lo, hi, c in spans:
-        if hi == lo:
-            continue
-        width = c * chunk
-        circ = _exact_block(width)
-        step = _span_step(sample_rate, c, use_kernel, dev, has_clean, circ)
-        near_lm = near[:, lo * chunk:hi * chunk].T
-        clean_lm = clean[:, lo * chunk:hi * chunk].T if has_clean else None
-        if circ:
-            st = st._replace(core=_to_circular_far(st.core))
-        head = torch.zeros((), dtype=I32, device=dev)
-        for s in range(lo, hi, c):
-            cols = slice((s - lo) * chunk, (s - lo) * chunk + width)
-            xs = (far[:, s * chunk:s * chunk + width], near_lm[cols]) + (
-                (clean_lm[cols],) if has_clean else ()) + (ms_t[s:s + c],)
-            if circ:
-                st, head, out, _ = step(st, head, *xs)
+            ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32, device=dev)
+            if ms.ndim == 0 or (ms.ndim == 1 and ms.shape[0] == n_streams):
+                ms_t = ms.expand(n_chunks, n_streams)
+            elif ms.ndim == 1:
+                ms_t = ms[:, None].expand(n_chunks, n_streams)
             else:
-                st, out, _ = step(st, *xs)
-            outs.append(out)
-        if circ:
-            st = st._replace(core=_from_circular_far(st.core, head))
-    out = (torch.cat(outs, dim=0).T.contiguous() if outs
-           else near.new_zeros((n_streams, 0)))
-    return clone_state(st), out
+                ms_t = ms
+
+            st = clone_state(state)
+        outs = []
+        for lo, hi, c in spans:
+            if hi == lo:
+                continue
+            width = c * chunk
+            circ = _exact_block(width)
+            step = _span_step(sample_rate, c, use_kernel, dev, has_clean, circ)
+            near_lm = near[:, lo * chunk:hi * chunk].T
+            clean_lm = clean[:, lo * chunk:hi * chunk].T if has_clean else None
+            if circ:
+                st = st._replace(core=_to_circular_far(st.core))
+            head = torch.zeros((), dtype=I32, device=dev)
+            for s in range(lo, hi, c):
+                cols = slice((s - lo) * chunk, (s - lo) * chunk + width)
+                xs = (far[:, s * chunk:s * chunk + width], near_lm[cols]) + (
+                    (clean_lm[cols],) if has_clean else ()) + (ms_t[s:s + c],)
+                if circ:
+                    st, head, out, _ = step(st, head, *xs)
+                else:
+                    st, out, _ = step(st, *xs)
+                outs.append(out)
+            if circ:
+                st = st._replace(core=_from_circular_far(st.core, head))
+        with span("run.outputs"):
+            out = (torch.cat(outs, dim=0).T.contiguous() if outs
+                   else near.new_zeros((n_streams, 0)))
+            return clone_state(st), out

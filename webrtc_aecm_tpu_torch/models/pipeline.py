@@ -41,6 +41,7 @@ from .._tree import tree_map
 from ..compiled import compile_step
 from ..parallel import batch as pbatch
 from ..parallel import sharding as psharding
+from ..tracing import span
 
 I32 = torch.int32
 
@@ -197,12 +198,14 @@ class AecmPipeline:
         is compiled and donates its state (_get_step): afterwards
         self.state holds the graph's state buffers, which the next step
         updates in place."""
-        ms = _device.as_int32(ms_in_sndcard_buf, self.device).expand(
-            self.n_streams)
-        fn = self._get_step(clean is not None)
-        extra = () if clean is None else (self._audio(clean),)
-        self.state, out, warn = fn(self.state, self._audio(far),
-                                   self._audio(near), *extra, ms)
+        with span("step"):
+            with span("step.inputs"):
+                ms = _device.as_int32(ms_in_sndcard_buf, self.device).expand(
+                    self.n_streams)
+                audio = [self._audio(x) for x in (far, near) + (
+                    () if clean is None else (clean,))]
+            fn = self._get_step(clean is not None)
+            self.state, out, warn = fn(self.state, *audio, ms)
         return out, warn
 
     def run(self, far, near, clean=None, ms_in_sndcard_buf=40):
@@ -210,15 +213,16 @@ class AecmPipeline:
         n_chunks * chunk) int32; samples past the last whole chunk are
         dropped (the reference demo does the same, main.cc:121-123).  It
         replays the engine's compiled step chunk by chunk (run_streams_fused
-        / run_streams) and keeps the state it returns, its own copy."""
-        far, near = self._audio(far), self._audio(near)
-        clean = None if clean is None else self._audio(clean)
+        / run_streams, which convert the audio to int32) and keeps the
+        state it returns, its own copy."""
         run = (fused_mod.run_streams_fused if self.engine == "fused"
                else pbatch.run_streams)
         if self.mesh is None:
             self.state, out = run(self.state, far, near, self.sample_rate,
                                   ms_in_sndcard_buf, clean=clean)
             return out
+        far, near = self._audio(far), self._audio(near)
+        clean = None if clean is None else self._audio(clean)
         # each device runs its slice; ms goes to (n_chunks, n_streams)
         # so that it splits on the stream axis
         n_chunks = near.shape[-1] // self.chunk

@@ -22,6 +22,7 @@ from torch import nn
 
 from .. import _device, control
 from .._tree import tree_map
+from ..tracing import span
 
 I32 = torch.int32
 
@@ -149,30 +150,34 @@ def run_streams(state: control.AecmState, far, near, sample_rate: int,
     what it returns is its own.  Each chunk replays one compiled ChunkStep
     (compiled.py: captured once per input signature as a CUDA graph on the
     card; eager under compiled.disable_graphs() and on the CPU)."""
-    dev = state.ec_startup.device
-    chunk = min(160, sample_rate // 100)
-    far = torch.as_tensor(far, device=dev).to(I32)
-    near = torch.as_tensor(near, device=dev).to(I32)
-    n_streams, n_samples = near.shape
-    n_chunks = n_samples // chunk
-    ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32, device=dev)
-    if ms.ndim == 0 or (ms.ndim == 1 and ms.shape[0] == n_streams):
-        ms_t = ms.expand(n_chunks, n_streams)
-    elif ms.ndim == 1:
-        ms_t = ms[:, None].expand(n_chunks, n_streams)
-    else:
-        ms_t = ms
-    if clean is not None:
-        clean = torch.as_tensor(clean, device=dev).to(I32)
+    with span("run"):
+        dev = state.ec_startup.device
+        chunk = min(160, sample_rate // 100)
+        with span("run.inputs"):
+            far = torch.as_tensor(far, device=dev).to(I32)
+            near = torch.as_tensor(near, device=dev).to(I32)
+            n_streams, n_samples = near.shape
+            n_chunks = n_samples // chunk
+            ms = torch.as_tensor(ms_in_sndcard_buf, dtype=I32, device=dev)
+            if ms.ndim == 0 or (ms.ndim == 1 and ms.shape[0] == n_streams):
+                ms_t = ms.expand(n_chunks, n_streams)
+            elif ms.ndim == 1:
+                ms_t = ms[:, None].expand(n_chunks, n_streams)
+            else:
+                ms_t = ms
+            if clean is not None:
+                clean = torch.as_tensor(clean, device=dev).to(I32)
+            st = tree_map(lambda x: x.clone(), state)
 
-    step = _chunk_step(sample_rate, clean is not None, dev)
-    st = tree_map(lambda x: x.clone(), state)
-    outs = []
-    for c in range(n_chunks):
-        cols = slice(c * chunk, (c + 1) * chunk)
-        extra = () if clean is None else (clean[:, cols],)
-        st, out, _ = step(st, far[:, cols], near[:, cols], *extra, ms_t[c])
-        outs.append(out)
-    out = (torch.cat(outs, dim=-1) if outs
-           else near.new_zeros((n_streams, 0)))
-    return tree_map(lambda x: x.clone(), st), out
+        step = _chunk_step(sample_rate, clean is not None, dev)
+        outs = []
+        for c in range(n_chunks):
+            cols = slice(c * chunk, (c + 1) * chunk)
+            extra = () if clean is None else (clean[:, cols],)
+            st, out, _ = step(st, far[:, cols], near[:, cols], *extra,
+                              ms_t[c])
+            outs.append(out)
+        with span("run.outputs"):
+            out = (torch.cat(outs, dim=-1) if outs
+                   else near.new_zeros((n_streams, 0)))
+            return tree_map(lambda x: x.clone(), st), out
