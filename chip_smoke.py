@@ -218,7 +218,9 @@ FRAMES_OPS = {
     "NLMS": (6110, "step size not 0: 65 bins x 94"),
     "hnl squared": (299, "mult == 2: 65 x 3 + 21 + 1 + 41 x 2"),
     "NLP": (587, "nlp_flag: 65 bins x 9 + 2"),
-    "comfort noise": (2015, "cng_mode: 65 bins x 31"),
+    "comfort noise": (2463, "cng_mode: 65 bins x 31, and 64 draws x 7: the "
+                      "draw's index, the closure's multiply and add, the "
+                      "mask, the phase index's two shifts and multiply"),
     "clean transform": (
         FFT_BUTTERFLIES * BUTTERFLY_OPS + FORWARD_REST_OPS + 65 * 2,
         "has_clean: a third forward transform per active block (the twiddle "
@@ -553,7 +555,7 @@ class StepCapture:
 
         def frames(core, t, *rest):
             cap.frames_args = (fused.clone_state(core), t) + rest
-            ref = fused.frames_step(fused.clone_state(core), t, *rest)
+            ref = fused.frames_step_cng(fused.clone_state(core), t, *rest)
             got = cap.orig_frames(core, t, *rest)
             cap.worst["frames"] = max(cap.worst["frames"], compare_trees(
                 "frames kernel", got, ref))
@@ -589,7 +591,7 @@ class StepCapture:
 
 
 class PlainProbe:
-    """Watches fused.frames_step (the plain version) run once and records,
+    """Watches fused.frames_step (in the plain version) run once and records,
     per stream, what the data made the step's active blocks do: the shift of
     every inverse-transform stage, saturating adds that clipped, and the
     data-dependent paths that the operation count follows.  `seen[name]` is
@@ -680,12 +682,12 @@ class PlainProbe:
 
 
 def widen_frames_args(torch, frames_args, b):
-    """A captured frames_step call (core, tables, far, noisy, clean, phase,
+    """A captured frames kernel call (core, tables, far, noisy, clean,
     run_rows, mult, n_frames, has_clean, abs_approx, fpc, head) repeated
     along the stream axis to b streams; every tensor is a fresh contiguous
     copy."""
     from webrtc_aecm_tpu_torch._tree import tree_map
-    core, t, far, noisy, clean, phase, run_rows, *tail = frames_args
+    core, t, far, noisy, clean, run_rows, *tail = frames_args
     b0 = far.shape[1]
 
     def widen(x):
@@ -694,18 +696,18 @@ def widen_frames_args(torch, frames_args, b):
         return torch.cat([x] * (b // b0) + [x[:, :b % b0]],
                          dim=1).contiguous()
     return (tree_map(widen, core), t, widen(far), widen(noisy), widen(clean),
-            widen(phase), widen(run_rows)) + tuple(tail)
+            widen(run_rows)) + tuple(tail)
 
 
 def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
-    """Inputs of one frames_step call at b streams with the cases a
+    """Inputs of one frames kernel call at b streams with the cases a
     lane-parallel kernel is most likely to get wrong, planted by stream
     index on a warm state (a captured call, repeated to b streams; its mode
     -- frame count, clean input, abs_approx -- is kept, `head` replaces its
     history head: None for the newest-first history).  Returns (core, rest
     of the arguments, {category: mask})."""
     from webrtc_aecm_tpu_torch import fused
-    (core, t, far, noisy, clean, phase, run_rows, mult, n_frames, has_clean,
+    (core, t, far, noisy, clean, run_rows, mult, n_frames, has_clean,
      abs_approx, fpc, _) = widen_frames_args(torch, frames_args, b)
     fs = 8000 * mult
     rng = np.random.default_rng(seed)
@@ -788,6 +790,12 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
     put(core.cng_mode, m, 1)
     put(core.cng_mode, where("cng_mode 0", i % 13 == 3), 0)
     where("cng_mode 1", core.cng_mode[0] == 1)
+    # CNG seeds at the edges of the leaf's range (the kernel draws in 32-bit
+    # wrap-around arithmetic, the plain chain in int64)
+    for name, cls, seed in (("CNG seed 0", 7, 0),
+                            ("CNG seed 2^31 - 1", 8, 2 ** 31 - 1),
+                            ("CNG seed 2^32 - 1", 9, 2 ** 32 - 1)):
+        put(core.seed, where(name, i % 43 == cls), seed)
     put(core.nlp_flag, where("nlp_flag 0", i % 17 == 4), 0)
     where("nlp_flag 1", core.nlp_flag[0] == 1)
     for name, cls, state, count in (
@@ -846,20 +854,20 @@ def frames_planted_case(torch, dev, frames_args, b, head, seed=3):
     lows = core.de_near.mean_bit_counts[:history]
     where("equal minima in mean_bit_counts",
           (lows == lows.min(0).values).sum(0) >= 2)
-    return core, (t, far, noisy, clean, phase, run_rows, mult, n_frames,
+    return core, (t, far, noisy, clean, run_rows, mult, n_frames,
                   has_clean, abs_approx, fpc, head), cats
 
 
 def frames_planted_check(torch, dev, frames_args, b, head, tag=""):
-    """The frames kernel == fused.frames_step on the planted case at b
+    """The frames kernel == fused.frames_step_cng on the planted case at b
     streams: every output and every core leaf; fails if a category of the
     case has no stream.  What the full-scale inputs are there to reach (each
     shift of an inverse-transform stage, a saturating add that clips) is
     read off the plain run, not off what was planted."""
     from webrtc_aecm_tpu_torch import fused, fused_kernel
     core, rest, cats = frames_planted_case(torch, dev, frames_args, b, head)
-    with PlainProbe(torch, core, rest[5]) as probe:
-        ref = fused.frames_step(fused.clone_state(core), *rest)
+    with PlainProbe(torch, core, rest[4]) as probe:
+        ref = fused.frames_step_cng(fused.clone_state(core), *rest)
     reached = [f"an inverse-transform stage shifting by {v}"
                for v in (0, 1, 2)] + [
         "a saturating int16 add or clamp that clipped",
@@ -1034,7 +1042,7 @@ def frames_widened_check(torch, captured, b, tag):
     streams (a ragged last block at 4099)."""
     from webrtc_aecm_tpu_torch import fused, fused_kernel
     args = widen_frames_args(torch, captured, b)
-    ref = fused.frames_step(fused.clone_state(args[0]), *args[1:])
+    ref = fused.frames_step_cng(fused.clone_state(args[0]), *args[1:])
     got = fused_kernel.frames_kernel_call(*args)
     torch.cuda.synchronize()
     return compare_trees(f"frames kernel, {tag}, B={b}", got, ref)
@@ -1163,12 +1171,12 @@ def phase_golden_envelope(torch, dev):
                                          ).contiguous())
         p = f"frames.{name}"
         dv = lambda k: torch.as_tensor(g[f"{p}.{k}"], device=dev)  # noqa
-        core = core._replace(seed=torch.as_tensor(
-            g[f"{p}.seed_in"].astype(np.int64), device=dev))
         t = fused.make_tables(dev, fused._n_slots_for(n_frames))
+        # the rsf entry's seed in: the kernel draws the phases and advances
+        # it to the golden state's
         res = fused_kernel.frames_kernel_call(
             core, t, dv("far"), dv("noisy"),
-            dv("clean") if has_clean else None, dv("phase"), dv("run_rows"),
+            dv("clean") if has_clean else None, dv("run_rows"),
             fs // 8000, n_frames, has_clean, absa, (fs // 100) // 80,
             None if head < 0 else head)
         torch.cuda.synchronize()
@@ -2320,10 +2328,10 @@ def frames_bytes(rest, b):
     for path, shape, dtype in fused_kernel._leaf_layout(1, history, cap):
         if path not in ("far_history", "far_q_domains"):
             state += shape[0] * dtype.itemsize
-    far, noisy, clean, phase, run_rows = rest[2:7]
-    n_frames, head = rest[8], rest[12]
+    far, noisy, clean, run_rows = rest[2:6]
+    n_frames, head = rest[7], rest[11]
     n_slots = fused._n_slots_for(n_frames)
-    ins = sum(x.shape[0] for x in (far, noisy, clean, phase, run_rows)
+    ins = sum(x.shape[0] for x in (far, noisy, clean, run_rows)
               if x is not None) * 4
     history_bytes = n_slots * (40 + 1) * 4
     if head is None:
@@ -2340,11 +2348,11 @@ def frames_ops(torch, rest):
     to need (active and inactive blocks, and per active block the
     data-dependent paths).  Returns (operations, {what: how many})."""
     from webrtc_aecm_tpu_torch import fused, fused_kernel
-    core, run_rows, mult, n_frames = rest[0], rest[6], rest[7], rest[8]
-    has_clean, abs_approx, head = rest[9], rest[10], rest[12]
+    core, run_rows, mult, n_frames = rest[0], rest[5], rest[6], rest[7]
+    has_clean, abs_approx, head = rest[8], rest[9], rest[11]
     history, la_cap = fused_kernel.core_shape(core)
     with PlainProbe(torch, core, run_rows) as probe:
-        fused.frames_step(fused.clone_state(core), *rest[1:])
+        fused.frames_step_cng(fused.clone_state(core), *rest[1:])
     b = run_rows.shape[1]
     n = {k: int(v) for k, v in probe.count.items()}
     active = n["active block"]
@@ -2510,7 +2518,7 @@ def phase_timing(torch, dev, captures, batch_state):
     ops_ms = n_ops / peak_ops * 1e3
     per["frames_step"] = dict(
         ms=cuda_ms(frames, 10),
-        plain_ms=cuda_ms(lambda: fused.frames_step(core, t, *rest), 3),
+        plain_ms=cuda_ms(lambda: fused.frames_step_cng(core, t, *rest), 3),
         bound_ms=max(bytes_ms, ops_ms),
         bound_by="operations" if ops_ms > bytes_ms else "bytes",
         bytes_ms=bytes_ms, ops_ms=ops_ms, ops_per_stream=n_ops / B_FULL,

@@ -240,6 +240,88 @@ def test_frames_step_matches_jax(golden, name):
     assert_state(core_leaves(res[0]), golden, f"{p}.state.")
 
 
+@pytest.mark.parametrize("name", list(gen.FRAMES))
+def test_frames_kernel_call_matches_jax(golden, name):
+    """The frames kernel's wrapper on CPU tensors (its plain version: the
+    CNG chain, then frames_step) from the entry's seed before the chain:
+    the JAX outputs and state, the advanced seed among them."""
+    core, a, _, _ = frames_case(golden, name)
+    t = fused.make_tables("cpu", fused._n_slots_for(a["n_frames"]))
+    res = fused_kernel.frames_kernel_call(
+        core, t, a["far"], a["noisy"], a["clean"], a["run_rows"], a["mult"],
+        a["n_frames"], a["has_clean"], a["abs_approx"], a["fpc"], a["head"])
+    p = f"frames.{name}"
+    assert len(res) == (2 if a["head"] is None else 4)
+    np.testing.assert_array_equal(res[1].numpy(), golden[f"{p}.out"])
+    if a["head"] is not None:
+        np.testing.assert_array_equal(res[2].numpy(), golden[f"{p}.pend_hist"])
+        np.testing.assert_array_equal(res[3].numpy(), golden[f"{p}.pend_q"])
+    assert_state(core_leaves(res[0]), golden, f"{p}.state.")
+
+
+def kernel_cng_draws(t, seed, cng, n_act, n_slots):
+    """The frames kernel's comfort-noise draws (csrc/frames.cuh `cng_seed`,
+    `fetch_slot`, the seed's store) in numpy uint32 arithmetic, from the
+    tables the kernel is given: the seed of draw k is
+    (A * seed + C) & 0x7FFFFFFF on the low words of lcg_a[k], lcg_c[k] and
+    the seed leaf, its phase cos360[i] & 0xFFFF | sin360[i] << 16 at
+    i = (359 * (seed_k >> 16)) >> 15.  Returns the packed phase of every
+    draw (n_slots*64, B), with 0 where the kernel draws nothing (cng off or
+    an inactive slot), and the new seed (1, B) int64."""
+    n = n_slots * 64
+    low = lambda x: x.numpy().astype(np.uint32)  # noqa: E731 (wraps mod 2^32)
+    a, c = low(t.lcg_a)[:n], low(t.lcg_c)[:n]
+    seeds = (a * low(seed.reshape(-1))[None] + c) & np.uint32(0x7FFFFFFF)
+    idx = (359 * (seeds >> np.uint32(16)).astype(np.int32)) >> 15
+    packed = ((low(t.sin360) << np.uint32(16))
+              | (low(t.cos360) & np.uint32(0xFFFF))).view(np.int32)
+    slot = np.arange(n)[:, None] // 64
+    phase = np.where(cng & (slot < n_act), packed[idx], 0)
+    last = seeds[np.maximum(n_act * 64 - 1, 0), np.arange(seeds.shape[1])]
+    new_seed = np.where(cng & (n_act >= 1), last.astype(np.int64),
+                        seed.numpy().reshape(-1))
+    return phase, new_seed[None]
+
+
+@pytest.mark.parametrize("n_frames", [1, 2, 3, 4, 5, 6, 8, 20])
+def test_kernel_cng_draws_match_the_chain(n_frames):
+    """The kernel's 32-bit draws == _precompute_cng_phases' int64 chain:
+    every phase an active slot uses and the advanced seed, at 2 to 5 block
+    slots and the general instances' 7, 8, 10 and 25; every active-slot
+    count from 0 to the step's slots (fills 0 to 48, 0 to n_frames frames
+    running), seeds 0, 2^31 - 1, 2^32 - 1 and random ones, cng on and
+    off."""
+    n_slots = fused._n_slots_for(n_frames)
+    fill, k = np.meshgrid([0, 16, 32, 48], np.arange(n_frames + 1))
+    fill, k = np.tile(fill.reshape(-1), 6), np.tile(k.reshape(-1), 6)
+    b = fill.size
+    rng = np.random.default_rng(n_frames)
+    seed = rng.integers(0, 2 ** 31, b)
+    seed[:3] = 0, 2 ** 31 - 1, 2 ** 32 - 1
+    cng = np.arange(b) % 6 != 5
+    core = SimpleNamespace(
+        seed=torch.as_tensor(seed[None], dtype=torch.int64),
+        cng_mode=torch.as_tensor(cng[None].astype(np.int32)),
+        frame_fill=torch.as_tensor(fill[None].astype(np.int32)))
+    run_rows = torch.as_tensor(np.arange(n_frames)[:, None]
+                               >= n_frames - k[None])
+    n_act = (fill + 80 * k) >> 6
+    assert set(n_act) == set(range(n_slots + 1))
+    t = fused.make_tables("cpu", n_slots)
+    phase, new_seed = fused._precompute_cng_phases(core, run_rows, n_frames,
+                                                   t)
+    want_phase, want_seed = kernel_cng_draws(t, core.seed, cng, n_act,
+                                             n_slots)
+    drawn = want_phase != 0
+    assert drawn.any() and (~drawn).any()
+    np.testing.assert_array_equal(phase.numpy()[drawn], want_phase[drawn])
+    np.testing.assert_array_equal(new_seed.numpy(), want_seed)
+    # a stream draws 64 per active slot: where nothing is drawn the seed
+    # is the one it came with
+    still = ~cng | (n_act == 0)
+    np.testing.assert_array_equal(new_seed.numpy()[0, still], seed[still])
+
+
 def test_frames_cases_cover_the_modes():
     """The golden frames calls span 2 to 5 block slots, both far-history
     orders, the clean input and abs_approx, and streams that start

@@ -109,13 +109,22 @@ def test_kernel_leaf_order_matches_core_state():
     assert names == paths
 
 
-def test_frames_wrapper_takes_plain_version_on_cpu(captured):
-    """CPU tensors go to the plain frames_step and count no launch."""
+def test_frames_wrapper_takes_plain_version_on_cpu(captured, monkeypatch):
+    """CPU tensors go to the plain version (the CNG chain, then frames_step)
+    and count no launch.  The captured core holds the seed the chain
+    advanced, so the chain is made to hand back the captured phase rows and
+    that seed."""
     core_in, args, (core_t, out_t, _, _) = captured[COMPARED[-1]]
+    t, far, noisy, clean, phase, run_rows, *rest = args
+    chained = []
+    monkeypatch.setattr(tf, "_precompute_cng_phases",
+                        lambda core, *a: chained.append(a) or (phase,
+                                                               core.seed))
     before = fused_kernel.frames_kernel_call.launches
     core_w, out_w, _, _ = fused_kernel.frames_kernel_call(
-        tf.clone_state(core_in), *args)
+        tf.clone_state(core_in), t, far, noisy, clean, run_rows, *rest)
     assert fused_kernel.frames_kernel_call.launches == before
+    assert len(chained) == 1
     assert torch.equal(out_w, out_t)
     for (p, a), (_, b) in zip(tree_leaves_with_path(core_w),
                               tree_leaves_with_path(core_t)):

@@ -108,7 +108,7 @@ _SIGNATURES = {
     "aecm_ring_multi_pass": [_VP] * 6 + [_CI] * 4,
     "aecm_ring_write": [_VP] * 5 + [_CL] + [_VP] * 2 + [_CI] * 3,
     "aecm_ring_read": [_VP] * 9 + [_CI] * 5,
-    "aecm_frames_step": [_VP, _CI] + [_VP] * 12 + [_CI] * 8,
+    "aecm_frames_step": [_VP, _CI] + [_VP] * 15 + [_CI] * 8,
 }
 _entry = {}          # C entry point -> its ctypes function, set at first use
 _raw_stream = None   # device index -> the current stream's handle (an int)

@@ -5,8 +5,10 @@
 
 extern "C" int aecm_frames_step(void* const* leaves, int n_leaves,
                                 const void* far, const void* noisy,
-                                const void* clean, const void* phase,
-                                const void* run_rows, const void* win128,
+                                const void* clean, const void* lcg_a,
+                                const void* lcg_c, const void* cos360,
+                                const void* sin360, const void* run_rows,
+                                const void* win128,
                                 const void* fwr, const void* fws, void* out,
                                 void* pend_hist, void* pend_q,
                                 const void* head, int B, int mult, int fpc,
@@ -27,22 +29,24 @@ extern "C" int aecm_frames_step(void* const* leaves, int n_leaves,
     return -2;
   }
   const bool general = frames_instance_is_general(H, cap, n_frames, circular);
-  if ((has_clean && clean == nullptr) ||
+  if ((has_clean && clean == nullptr) || lcg_a == nullptr ||
+      lcg_c == nullptr || cos360 == nullptr || sin360 == nullptr ||
       ((circular || general) && (pend_hist == nullptr || pend_q == nullptr))) {
     return -3;
   }
   Leaves lv;
   for (int i = 0; i < N_LEAVES; ++i) lv.p[i] = leaves[i];
-  Inputs in{(const int*)far,      (const int*)noisy,
-            (const int*)clean,    (const int*)phase,
-            (const bool*)run_rows, (const int*)win128,
-            (const int*)fwr,      (const int*)fws,
-            (int*)out,            (int*)pend_hist,
-            (int*)pend_q,         (const int*)head,
-            B,                    mult,
-            fpc,                  n_frames,
-            abs_approx != 0,      Geo{H, cap},
-            0};
+  Inputs in{(const int*)far,         (const int*)noisy,
+            (const int*)clean,       (const long long*)lcg_a,
+            (const long long*)lcg_c, (const int*)cos360,
+            (const int*)sin360,      (const bool*)run_rows,
+            (const int*)win128,      (const int*)fwr,
+            (const int*)fws,         (int*)out,
+            (int*)pend_hist,         (int*)pend_q,
+            (const int*)head,        B,
+            mult,                    fpc,
+            n_frames,                abs_approx != 0,
+            Geo{H, cap},             0};
   const cudaStream_t s = (cudaStream_t)stream;
   if (has_clean) return frames_launch_clean(circular, general, lv, in, s);
   return launch_frames_of<false>(circular, general, lv, in, s);

@@ -74,10 +74,14 @@
 //     one overflowing quotient handled apart (spl.cuh).
 //
 // Every core leaf the step can change is updated in place (as
-// input_output_aliases does for the TPU kernel).  The CNG seed chain and
-// phase lookups run before the kernel (phase rows come in packed: Q13 cos
-// low 16 bits, sin high 16).  Built with --fmad=false so the float32
-// histogram arithmetic rounds op by op like the PyTorch version.
+// input_output_aliases does for the TPU kernel), the CNG seed among them.
+// Each lane draws its own comfort-noise phases: draw k of the step is the
+// seed advanced k + 1 times, one multiply-add from the LCG's affine-closure
+// tables, then a lookup in the Q13 cos and sin tables; the tables are a few
+// KB and are read through the read-only cache, since the lanes of a warp
+// index different entries.  Built with
+// --fmad=false so the float32 histogram arithmetic rounds op by op like the
+// PyTorch version.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -133,7 +137,10 @@ struct Inputs {
   const int* far;        // (n_frames * 80, B) far frames
   const int* noisy;      // (n_frames * 80, B) near frames
   const int* clean;      // (n_frames * 80, B) clean near frames, or null
-  const int* phase;      // (n_slots * 64, B) packed CNG phase rows, per slot
+  const long long* lcg_a;  // (>= n_slots * 64,) uint32 values: CNG draw k is
+  const long long* lcg_c;  //   the seed (lcg_a[k] seed + lcg_c[k]) mod 2^31
+  const int* cos360;       // (360,) Q13 phase tables
+  const int* sin360;
   const bool* run_rows;  // (n_frames, B)
   const int* win128;     // (128,)
   const int* fwr;        // (7, 128) per-stage per-row twiddles
@@ -366,6 +373,7 @@ struct Ctx {
                     // path's instances)
   int lookahead;    // the stream's lookahead (general instances)
   int head;         // the circular history's head
+  uint32_t seed;    // the stream's CNG seed at entry (the leaf's low word)
 };
 
 __device__ __forceinline__ int warp_max(int v) {
@@ -992,7 +1000,7 @@ __device__ int _calc_suppression_gain_f(Scal& sc, const Energies& e) {
 }
 
 // core.comfort_noise for bin i: updates the noise estimate and adds the
-// noise to (re, im); lam is the bin's final hnl, p its packed phase row.
+// noise to (re, im); lam is the bin's final hnl, p its packed phase.
 __device__ void _comfort_noise_f(const Ctx& c, int i, int dfa_i, int lam,
                                  int p, int shift_noise, int min_track_shift,
                                  int& re, int& im) {
@@ -1145,10 +1153,20 @@ __device__ void _push_far_pending(const Ctx& c, int s, int ring, int far_q) {
   __syncwarp();   // the aligned fetch may read this block back
 }
 
-// Slot s's input samples and packed phase rows, as its lanes use them: far
-// and near sample lane + 32 j of the slot (j < 2), phase row of bin lane +
-// 32 j (j < 3).  Fetched one slot ahead, so that the loads from global
-// memory are in flight behind the slot before.
+// CNG draw k of the step (fused.py _precompute_cng_phases): the seed
+// advanced k + 1 times by WebRtcSpl_RandU's LCG, (A seed + C) mod 2^31 with
+// A, C the closure's entry k.  Exact in 32-bit wrap-around arithmetic,
+// because 2^31 divides 2^32.
+__device__ __forceinline__ uint32_t cng_seed(const Ctx& c, int k) {
+  const uint32_t a = (uint32_t)__ldg(c.in.lcg_a + k);
+  return (a * c.seed + (uint32_t)__ldg(c.in.lcg_c + k)) & 0x7FFFFFFFu;
+}
+
+// Slot s's input samples and phases, as its lanes use them: far and near
+// sample lane + 32 j of the slot (j < 2), the phase of bin lane + 32 j
+// (j < 3), drawn here if the slot is active (bin i >= 1 of slot s takes
+// draw 64 s + i - 1) and packed: Q13 cos in the low 16 bits, sin high.  Fetched one slot ahead, so that the loads from
+// global memory are in flight behind the slot before.
 struct SlotIn {
   int far[2], near[2], clean[2], phase[3];
   // the aligned far block, fetched on the guess that the slot's delay will
@@ -1200,13 +1218,18 @@ __device__ __forceinline__ SlotIn fetch_slot(const Ctx& c, const Scal& sc,
                                        k, n, i)
                        : 0;
   }
+  const bool draw =
+      sc.cng_mode != 0 && fill0 + FRAME_LEN * k >= PART_LEN * (s + 1);
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const int i = c.lane + 32 * j;
-    x.phase[j] =
-        (sc.cng_mode != 0 && i >= 1 && i < PART_LEN1)
-            ? c.in.phase[(size_t)(s * PART_LEN + i - 1) * c.in.B + c.b]
-            : 0;
+    x.phase[j] = 0;
+    if (draw && i >= 1 && i < PART_LEN1) {
+      const uint32_t seed = cng_seed(c, s * PART_LEN + i - 1);
+      const int idx = (359 * (int)(seed >> 16)) >> 15;
+      x.phase[j] = (int)(((uint32_t)__ldg(c.in.sin360 + idx) << 16) |
+                         ((uint32_t)__ldg(c.in.cos360 + idx) & 0xFFFFu));
+    }
   }
   int guess = sc.fixed_delay >= 0 ? sc.fixed_delay : sc.last_delay;
   if (guess == -2) guess = 0;
@@ -1740,6 +1763,10 @@ __device__ void run_stream(const Ctx& c) {
 #undef AECM_STORE
     S[O_N_ACT] = n_act;
     S[O_N_SLIDE] = n_act - win0;
+    // the seed advanced by the step's draws: 64 per active slot
+    if (sc.cng_mode != 0 && n_act >= 1) {
+      ((long long*)c.lv.p[SEED])[b] = cng_seed(c, n_act * PART_LEN - 1);
+    }
   }
 }
 
@@ -1909,7 +1936,8 @@ frames_step_kernel(const __grid_constant__ Leaves lv,
                 // read from device memory, so that one CUDA graph of a
                 // step serves every head; reduced into range so that no
                 // head reads outside the history
-                CIRC ? (*in.head % MAX_DELAY + MAX_DELAY) % MAX_DELAY : 0};
+                CIRC ? (*in.head % MAX_DELAY + MAX_DELAY) % MAX_DELAY : 0,
+                (uint32_t)((const long long*)lv.p[SEED])[b]};
     run_stream<CLEAN, CIRC, GEN>(c);
   }
   __syncthreads();

@@ -5,7 +5,8 @@ The whole per-step core path on lane-major state: every core leaf is shaped
 JAX package's FusedState, so the two compare leaf for leaf.
 
 Two execution paths share one semantics:
-  * plain path: `frames_step` and `_ring_write_gather_multi` below are plain
+  * plain path: `frames_step_cng` (the CNG chain, then `frames_step`) and
+    `_ring_write_gather_multi` below are plain
     PyTorch tensor code; it runs on any device and is the CPU test target,
     held bit-exact against the JAX package (tests/test_torch_*.py);
   * kernel path: on CUDA tensors the step runs the jitter-ring kernel
@@ -1188,6 +1189,19 @@ def frames_step(core, t: Tables, far_frames, noisy_frames, clean_frames,
     return core, out, pend_hist, pend_q
 
 
+def frames_step_cng(core, t: Tables, far_frames, noisy_frames, clean_frames,
+                    run_rows, mult: int, n_frames: int, has_clean: bool,
+                    abs_approx: bool = False, frames_per_chunk: int = 1,
+                    far_head=None):
+    """The plain version of the frames kernel (fused_kernel.
+    frames_kernel_call): the CNG chain (_precompute_cng_phases), then
+    frames_step on the advanced seed.  Returns what frames_step returns."""
+    phase_all, seed = _precompute_cng_phases(core, run_rows, n_frames, t)
+    return frames_step(core._replace(seed=seed), t, far_frames, noisy_frames,
+                       clean_frames, phase_all, run_rows, mult, n_frames,
+                       has_clean, abs_approx, frames_per_chunk, far_head)
+
+
 # ---------------------------------------------------------------------------
 # Control layer (batch-leading) and the serving step
 # ---------------------------------------------------------------------------
@@ -1256,12 +1270,13 @@ def _ring_write_gather_multi(data, wpos, values, n_write, rpos, n_read: int):
 
 
 def _precompute_cng_phases(core_f, run_rows, n_frames: int, t: Tables):
-    """Advance the CNG LCG chain and look up the phase tables before the
-    frames kernel runs (as the JAX package does outside its kernel).  An
-    active slot s always draws from the seed advanced exactly 64*s times,
-    so the whole chain is one affine-closure op over the step's draws.
-    Returns phase_all (n_slots*64, B) int32 (Q13 cos in the low 16 bits,
-    sin in the high 16) and the new seed row (1, B)."""
+    """Advance the CNG LCG chain and look up the phase tables ahead of
+    frames_step (as the JAX package does outside its kernel; the frames
+    kernel draws the same phases lane by lane and advances the seed
+    itself).  An active slot s always draws from the seed advanced exactly
+    64*s times, so the whole chain is one affine-closure op over the step's
+    draws.  Returns phase_all (n_slots*64, B) int32 (Q13 cos in the low 16
+    bits, sin in the high 16) and the new seed row (1, B)."""
     n_slots = _n_slots_for(n_frames)
     seed = core_f.seed
     cng = core_f.cng_mode != 0
@@ -1542,10 +1557,6 @@ class FusedAecm(nn.Module):
         ctrl = ctrl._replace(farend_old=farend_old)
         run_rows = torch.stack([r for r in run_l for _ in range(fpc)], dim=0)
 
-        # --- CNG LCG chain + phase lookups, before the frames kernel ---
-        phase_all, new_seed = _precompute_cng_phases(core_f, run_rows,
-                                                     self.n_frames, t)
-        core_f = core_f._replace(seed=new_seed)
         far_lm = torch.cat([f.T for f in frames_far], dim=0).contiguous()
 
         def to_lm(x):
@@ -1555,13 +1566,12 @@ class FusedAecm(nn.Module):
         clean_lm = to_lm(clean) if self.has_clean else None
         fill0 = core_f.frame_fill.clone()   # the kernel updates it in place
 
-        step_args = (core_f, t, far_lm, noisy_lm, clean_lm, phase_all,
-                     run_rows, self.mult, self.n_frames, self.has_clean,
+        # --- the core, CNG draws included (the kernel advances the seed) ---
+        frames = (fused_kernel.frames_kernel_call if self.use_kernel
+                  else frames_step_cng)
+        res = frames(core_f, t, far_lm, noisy_lm, clean_lm, run_rows,
+                     self.mult, self.n_frames, self.has_clean,
                      self.abs_approx, fpc, head)
-        if self.use_kernel:
-            res = fused_kernel.frames_kernel_call(*step_args)
-        else:
-            res = frames_step(*step_args)
 
         if self.circular_far:
             core_f, out_lm, pend_hist, pend_q = res

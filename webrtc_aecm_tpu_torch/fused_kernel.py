@@ -8,7 +8,10 @@ each of its modes: any number of frames, a single or a clean near input,
 (read off the leaf shapes, as the TPU kernel reads them), and the far
 history circular (whole-block steps dividing the history; the new blocks
 come out for the caller to append) or newest-first (merged in place, as
-the TPU kernel's aliases do).  The plain version is fused.frames_step.
+the TPU kernel's aliases do).  Unlike the TPU kernel it also draws the
+comfort-noise phases (each lane its own, from the LCG's affine-closure
+tables) and advances the CNG seed, which the JAX package does ahead of its
+kernel.  The plain version is fused.frames_step_cng.
 
 What bounds it on the card: integer operations (three 128-point
 fixed-point FFTs, four with a clean input, the history-size delay search
@@ -160,30 +163,33 @@ def frames_layout(has_clean: bool = False, circular: bool = True,
 
 
 def frames_kernel_call(core, t, far_frames, noisy_frames, clean_frames,
-                       phase_all, run_rows, mult: int, n_frames: int,
+                       run_rows, mult: int, n_frames: int,
                        has_clean: bool, abs_approx: bool = False,
                        frames_per_chunk: int = 1, far_head=None):
-    """fused.frames_step on CPU tensors; the CUDA frames kernel on CUDA
-    tensors, which updates every core leaf in place (far_history and
-    far_q_domains too when far_head is None: the newest-first merge).
-    Returns what frames_step returns: (core, out) with far_head None,
-    (core, out, pend_hist, pend_q) with the circular head far_head (a 0-d
-    int32 tensor on the step's device, which the kernel reads from device
-    memory, or an int, filled into one here).
+    """fused.frames_step_cng on CPU tensors (the CNG chain, then
+    frames_step); the CUDA frames kernel on CUDA tensors, which draws the
+    step's comfort-noise phases itself and updates every core leaf in place
+    (the CNG seed too; far_history and far_q_domains when far_head is None:
+    the newest-first merge).  Returns what frames_step returns: (core, out)
+    with far_head None, (core, out, pend_hist, pend_q) with the circular
+    head far_head (a 0-d int32 tensor on the step's device, which the
+    kernel reads from device memory, or an int, filled into one here).
 
     The kernel takes its arguments as they stand and converts nothing:
     every core leaf in its layout (the delay estimator's history size and
     lookahead capacity are read off its leaves), far / noisy / clean_frames
-    (n_frames*80, B) and phase_all (n_slots*64, B) int32, run_rows
-    (n_frames, B) bool, the tables int32, all contiguous and on one device;
-    anything else raises, as does a circular step that is not whole blocks
-    dividing the history, or a history size above max_history_size."""
+    (n_frames*80, B) int32, run_rows (n_frames, B) bool, the tables int32
+    but the LCG's int64 ones (at least n_slots*64 draws), all contiguous
+    and on one device; anything else raises, as does a circular step that is not whole
+    blocks dividing the history, or a history size above
+    max_history_size."""
     dev = far_frames.device
     if dev.type == "cpu":
-        from .fused import frames_step
-        return frames_step(core, t, far_frames, noisy_frames, clean_frames,
-                           phase_all, run_rows, mult, n_frames, has_clean,
-                           abs_approx, frames_per_chunk, far_head)
+        from .fused import frames_step_cng
+        return frames_step_cng(core, t, far_frames, noisy_frames,
+                               clean_frames, run_rows, mult, n_frames,
+                               has_clean, abs_approx, frames_per_chunk,
+                               far_head)
     if dev.type != "cuda":
         raise RuntimeError(f"no frames kernel for device {dev}")
     from .fused import _exact_block, _n_slots_for
@@ -216,11 +222,21 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, clean_frames,
     if has_clean:
         _build.require(clean_frames, "clean_frames", I32, rows, dev)
     n_slots = _n_slots_for(n_frames)
-    _build.require(phase_all, "phase_all", I32, (n_slots * 64, b), dev)
     _build.require(run_rows, "run_rows", torch.bool, (n_frames, b), dev)
     for name in ("win128", "fwr", "fws"):
         x = getattr(t, name)
         _build.require(x, f"table {name}", I32, x.shape, dev)
+    for name in ("cos360", "sin360"):
+        _build.require(getattr(t, name), f"table {name}", I32, (360,), dev)
+    draws = t.lcg_a.shape[0]
+    for name in ("lcg_a", "lcg_c"):
+        _build.require(getattr(t, name), f"table {name}", torch.int64,
+                       (draws, 1), dev)
+    if draws < n_slots * 64:
+        raise ValueError(
+            f"the LCG tables hold {draws} draws; a step of {n_frames} frames "
+            f"draws up to {n_slots * 64} (fused.make_tables(device, "
+            f"{n_slots}))")
     if circular:
         if not torch.is_tensor(far_head):
             far_head = torch.full((), far_head, dtype=I32, device=dev)
@@ -236,7 +252,8 @@ def frames_kernel_call(core, t, far_frames, noisy_frames, clean_frames,
         "aecm_frames_step", dev.index, ptrs.buffer_info()[0], len(ptrs),
         far_frames.data_ptr(), noisy_frames.data_ptr(),
         clean_frames.data_ptr() if has_clean else None,
-        phase_all.data_ptr(), run_rows.data_ptr(), t.win128.data_ptr(),
+        t.lcg_a.data_ptr(), t.lcg_c.data_ptr(), t.cos360.data_ptr(),
+        t.sin360.data_ptr(), run_rows.data_ptr(), t.win128.data_ptr(),
         t.fwr.data_ptr(), t.fws.data_ptr(), out.data_ptr(),
         pend_hist.data_ptr() if pending else None,
         pend_q.data_ptr() if pending else None,
