@@ -40,9 +40,10 @@ def abs_approx(driver):
         pipe = driver.pipe = AecmPipeline(
             pipe.n_streams, pipe.sample_rate, cfg["cng_mode"],
             cfg["echo_mode"], engine="fused", device=pipe.device)
-    pipe._step[False] = compile_step(
-        fused.make_fused_chunk_step(pipe.sample_rate, abs_approx=True,
-                                    device=pipe.device),
+    has_clean = driver.cell.config["near_inputs"] == 2
+    pipe._step[has_clean] = compile_step(
+        fused.make_fused_chunk_step(pipe.sample_rate, has_clean=has_clean,
+                                    abs_approx=True, device=pipe.device),
         donate=True, name="AecmPipeline.step (fused, abs_approx)")
     steps = {}
 

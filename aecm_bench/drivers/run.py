@@ -1,6 +1,7 @@
 """The bulk drive: `AecmPipeline.run` on recorded pairs, call after call.
 
-Every call hands the pipeline `bulk_call_s` seconds of every stream, the
+Every call hands the pipeline `bulk_call_s` seconds of every stream (far,
+near, and the clean near where the configuration has two near inputs), the
 next slice of the scene pool on the card (a view: the pipeline converts it
 to int32 itself), and the pipeline carries the state from call to call.
 The window runs whole calls, each waited for, until `--seconds` have
@@ -40,7 +41,8 @@ class Driver:
         marks = [perf()]
         self.pool = scenes_mod.make_scenes(
             scenes_mod.SceneParams.from_traffic(tr), self.n, self.rate,
-            cfg["scene_period_s"], self.seed, self.device)
+            cfg["scene_period_s"], self.seed, self.device,
+            cfg["near_inputs"])
         self._sync()
         marks.append(perf())
         n_samples = self.pool.far.shape[1]
@@ -75,8 +77,11 @@ class Driver:
     def _call(self, c: int):
         s = (c % self.n_slices) * self.call_len
         cols = slice(s, s + self.call_len)
+        clean = self.pool.clean
         with self.tracer.span("run_call"):
             out = self.pipe.run(self.pool.far[:, cols], self.pool.near[:, cols],
+                                clean=None if clean is None
+                                else clean[:, cols],
                                 ms_in_sndcard_buf=self.pool.ms)
         with self.tracer.span("keep"):
             self.kept.append(out.index_select(0, self.idx_d))
@@ -117,24 +122,28 @@ class Driver:
     def free(self):
         self.kept = [k.cpu() for k in self.kept]
         del self.pipe
-        self.ref_audio = tuple(x.index_select(0, self.idx_d).cpu()
+        self.ref_audio = tuple(None if x is None else
+                               x.index_select(0, self.idx_d).cpu()
                                for x in self.pool)
         del self.pool
 
     def compared(self):
         """(program out (K, S, chunk), None, reference inputs: far, near (K,
-        S, chunk) int16, ms (S,)), K the chunks of every call run."""
-        far, near, ms = self.ref_audio
+        S, chunk) int16, ms (S,), clean (K, S, chunk) int16 or None), K the
+        chunks of every call run."""
+        far, near, ms, clean = self.ref_audio
         n_calls = len(self.kept)
         s = far.shape[0]
         out = torch.cat(self.kept, dim=1)                 # (S, calls * L)
         k = out.shape[1] // self.chunk
 
         def slices(x):
+            if x is None:
+                return None
             parts = [x[:, (c % self.n_slices) * self.call_len:
                        (c % self.n_slices + 1) * self.call_len]
                      for c in range(n_calls)]
             return torch.cat(parts, dim=1).view(s, k, self.chunk
                                                 ).transpose(0, 1)
         prog = out.view(s, k, self.chunk).transpose(0, 1).numpy()
-        return prog, None, (slices(far), slices(near), ms)
+        return prog, None, (slices(far), slices(near), ms, slices(clean))

@@ -2,8 +2,9 @@
 
 Ticks are due on a fixed schedule from the window's start; a tick that
 comes late starts at once, and its latency counts from when it was due.
-Each tick copies every stream's 10 ms of far and near audio (int16, from a
-pinned host pool laid out tick by tick) to the card, calls the step, and
+Each tick copies every stream's 10 ms of far and near audio, and of the
+clean near audio where the configuration has two near inputs (int16, from
+a pinned host pool laid out tick by tick), to the card, calls the step, and
 copies the output (int32) and the warning flags back to pinned host memory,
 as a server does; the latency ends when they are on the host.  The
 compared streams' outputs are kept from the host copy after each tick.
@@ -57,34 +58,40 @@ class Driver:
         marks = [perf()]
         sc = scenes_mod.make_scenes(
             scenes_mod.SceneParams.from_traffic(tr), self.n, self.rate,
-            cfg["scene_period_s"], self.seed, self.device)
+            cfg["scene_period_s"], self.seed, self.device,
+            cfg["near_inputs"])
         self.period = sc.far.shape[1] // self.chunk
         pin = self.device.type == "cuda"
         if pin:
             torch.cuda.synchronize(self.device)
         marks.append(perf())
-        self.pool = torch.empty((self.period, 2, self.n, self.chunk),
+        # the channels: far, near, and the clean near of two near inputs
+        audio = (sc.far, sc.near) + (() if sc.clean is None else (sc.clean,))
+        self.pool = torch.empty((self.period, len(audio), self.n, self.chunk),
                                 dtype=torch.int16, pin_memory=pin)
         step = 50
         for a in range(0, self.period, step):
             b = min(self.period, a + step)
             cols = slice(a * self.chunk, b * self.chunk)
-            for j, x in enumerate((sc.far, sc.near)):
+            for j, x in enumerate(audio):
                 self.pool[a:b, j].copy_(x[:, cols].reshape(
                     self.n, b - a, self.chunk).transpose(0, 1))
         idx = torch.as_tensor(self.idx, device=self.device)
-        self.ref_audio = tuple(x.index_select(0, idx).cpu()
-                               for x in (sc.far, sc.near, sc.ms))
+        self.ref_audio = tuple(None if x is None else
+                               x.index_select(0, idx).cpu() for x in sc)
         self.ms = sc.ms
-        del sc
+        channels = len(audio)
+        del sc, audio
         marks.append(perf())
         self.pipe = AecmPipeline(self.n, self.rate, cfg["cng_mode"],
                                  cfg["echo_mode"], engine="auto",
                                  device=self.device)
         if self.program_patch is not None:
             self.program_patch(self)
-        self.in_d = torch.empty((2, self.n, self.chunk), dtype=torch.int16,
-                                device=self.device)
+        self.in_d = torch.empty((channels, self.n, self.chunk),
+                                dtype=torch.int16, device=self.device)
+        # the step's keyword for the clean near input, none for one input
+        self.clean_kw = {"clean": self.in_d[2]} if channels == 3 else {}
         self.stream = (torch.cuda.current_stream(self.device) if pin
                        else None)
         total = self.warm + self.n_window
@@ -110,7 +117,8 @@ class Driver:
         t0 = perf()
         with span("step_call"):
             out, warn = self.pipe.step(self.in_d[0], self.in_d[1],
-                                       ms_in_sndcard_buf=self.ms)
+                                       ms_in_sndcard_buf=self.ms,
+                                       **self.clean_kw)
         t1 = perf()
         if self.h_out is None:
             pin = self.stream is not None
@@ -179,17 +187,21 @@ class Driver:
 
     # -- after the window -----------------------------------------------------
     def free(self):
-        del self.pipe, self.pool, self.in_d, self.ms
+        del self.pipe, self.pool, self.in_d, self.ms, self.clean_kw
         self.h_out = self.h_warn = self.h_out_np = self.h_warn_np = None
 
     def compared(self):
         """(program out (K, S, chunk), program warn (K, S) or None, reference
-        inputs: far, near (K, S, chunk) int16, ms (S,))."""
-        far, near, ms = self.ref_audio
+        inputs: far, near (K, S, chunk) int16, ms (S,), clean (K, S, chunk)
+        int16 or None)."""
+        far, near, ms, clean = self.ref_audio
         k = self.rec_out.shape[0]
         s = far.shape[0]
         ticks = torch.arange(k) % self.period
 
         def chunks(x):
+            if x is None:
+                return None
             return x.view(s, self.period, self.chunk)[:, ticks].transpose(0, 1)
-        return self.rec_out, self.rec_warn, (chunks(far), chunks(near), ms)
+        return self.rec_out, self.rec_warn, (chunks(far), chunks(near), ms,
+                                             chunks(clean))

@@ -97,9 +97,12 @@ class Cell:
 
     def counts(self) -> dict | None:
         """The frozen operation and byte counts of the frames kernel in the
-        mode this cell's drive runs, if the benchmark has them."""
+        mode this cell's drive runs, if the benchmark has them:
+        counts/frames_<rate>_<drive>.json, frames_<rate>_clean_<drive>.json
+        where the configuration has two near inputs."""
+        clean = "clean_" if self.config["near_inputs"] == 2 else ""
         path = (self.root / "aecm_bench" / "counts" /
-                f"frames_{self.config['sample_rate']}_"
+                f"frames_{self.config['sample_rate']}_{clean}"
                 f"{self.traffic['drive']}.json")
         return json.loads(path.read_text()) if path.exists() else None
 
@@ -221,13 +224,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    prog_out, prog_warn, (far, near, ms) = drv.compared()
+    prog_out, prog_warn, (far, near, ms, clean) = drv.compared()
     from .reference import Reference
     t_ref = time.perf_counter()
     cfg = cell.config
     ref_out, ref_warn = Reference(far.shape[1], cfg["sample_rate"], device,
                                   cfg["cng_mode"], cfg["echo_mode"]
-                                  ).run(far, near, ms)
+                                  ).run(far, near, ms, clean)
     ref_s = time.perf_counter() - t_ref
     chunk = cell.config["chunk_samples"]
     per_call = (None if prog_warn is not None else

@@ -17,6 +17,14 @@ scalars are drawn on the host (numpy, from the seed); the chains and the
 signals on the device (torch.Generator, from the seed), the signals in
 blocks of streams, in float32, then rounded and saturated to int16.
 
+With two near inputs (a configuration's `near_inputs: 2`: WebRTC's audio
+processing module with noise suppression on, which hands AECM the capture
+before the suppressor and after it) every stream also gets a clean near
+end: its echo and local talker as they are, its noise scaled by the
+traffic's `ns_noise_gain_db`, the stand-in for a suppressor that takes the
+noise down to its floor and leaves speech and echo alone.  It is made from
+the same draws, so far, near and ms are the same with it or without it.
+
 The scenes are periodic: `period_s` seconds that repeat.  The echo is the
 far end rolled by its delay around the period, so the near end stays
 consistent with the far end across the wrap.  The same seed gives the same
@@ -28,6 +36,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .harness import NoResult
 
 BLOCK_STREAMS = 2048
 FULL_SCALE = 32768.0
@@ -53,18 +63,23 @@ class SceneParams(NamedTuple):
     echo_extra_ms: tuple          # echo delay beyond ms_in_sndcard_buf
     noise_dbov: tuple             # near-end noise rms range, dBov
     ms_in_sndcard_buf: tuple      # whole ms, uniform range (inclusive)
+    ns_noise_gain_db: float | None = None   # the clean near end's noise
+    #                                         gain (two near inputs only)
 
     @classmethod
     def from_traffic(cls, traffic: dict) -> "SceneParams":
         s = traffic["scene"]
         return cls(**{f: (tuple(s[f]) if isinstance(s[f], list) else s[f])
-                      for f in cls._fields})
+                      for f in cls._fields
+                      if f in s or f not in cls._field_defaults})
 
 
 class Scenes(NamedTuple):
     far: torch.Tensor     # (n_streams, n_samples) int16
     near: torch.Tensor    # (n_streams, n_samples) int16
     ms: torch.Tensor      # (n_streams,) int32
+    clean: torch.Tensor | None = None   # (n_streams, n_samples) int16, the
+    #                                     clean near end of two near inputs
 
 
 def _uniform(rng, lo_hi, n):
@@ -151,10 +166,22 @@ def _voice(t, f0, syl, phase, gen):
     return (0.45 * v + 0.08 * noise) * env
 
 
+def _int16(x):
+    return x.round().clamp(-32768, 32767).to(torch.int16)
+
+
 def make_scenes(p: SceneParams, n_streams: int, sample_rate: int,
-                period_s: float, seed: int, device) -> Scenes:
-    """n_streams scenes of period_s seconds at sample_rate (see the module
-    docstring)."""
+                period_s: float, seed: int, device,
+                near_inputs: int = 1) -> Scenes:
+    """n_streams scenes of period_s seconds at sample_rate, with a clean
+    near end when near_inputs is 2 (see the module docstring)."""
+    if near_inputs not in (1, 2):
+        raise NoResult(f"near_inputs {near_inputs}: AECM takes one near "
+                       f"input or two (noisy and clean)")
+    if near_inputs == 2 and p.ns_noise_gain_db is None:
+        raise NoResult("the configuration has two near inputs and the "
+                       "traffic's scene gives no ns_noise_gain_db for the "
+                       "clean one")
     device = torch.device(device)
     step = sample_rate * p.step_ms // 1000
     n_steps = int(round(period_s * 1000 / p.step_ms))
@@ -165,6 +192,9 @@ def make_scenes(p: SceneParams, n_streams: int, sample_rate: int,
     talk = conversation(p, n_streams, n_steps, gen, device)
     far = torch.empty((n_streams, n), dtype=torch.int16, device=device)
     near = torch.empty_like(far)
+    clean = torch.empty_like(far) if near_inputs == 2 else None
+    if clean is not None:
+        ns_gain = 10.0 ** (p.ns_noise_gain_db / 20)
     t = torch.arange(n, device=device, dtype=torch.float32) / sample_rate
     idx = torch.arange(n, device=device)
     for lo in range(0, n_streams, BLOCK_STREAMS):
@@ -191,9 +221,11 @@ def make_scenes(p: SceneParams, n_streams: int, sample_rate: int,
                                                         n))
         noise = torch.randn((b, n), generator=gen, device=device
                             ) * col("noise_rms")
-        near_sig = col("echo_gain") * echo + local + noise
-        far[lo:hi] = far_sig.round().clamp(-32768, 32767).to(torch.int16)
-        near[lo:hi] = near_sig.round().clamp(-32768, 32767).to(torch.int16)
-        del far_sig, local, echo, noise, near_sig
+        speech = col("echo_gain") * echo + local
+        far[lo:hi] = _int16(far_sig)
+        near[lo:hi] = _int16(speech + noise)
+        if clean is not None:
+            clean[lo:hi] = _int16(speech + ns_gain * noise)
+        del far_sig, local, echo, noise, speech
     ms = torch.as_tensor(sp["ms"], dtype=torch.int32, device=device)
-    return Scenes(far, near, ms)
+    return Scenes(far, near, ms, clean)

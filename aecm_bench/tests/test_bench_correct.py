@@ -42,23 +42,23 @@ def _run(root, workload, patch=None, seconds=0.1, seed=9):
 
 
 def _wrap(driver, fault):
+    """The pipeline's step or run with `fault` planted under it: the fault
+    sees each call's output (and the state before it); a fault marked
+    `drops_clean` has the program called without its clean near input."""
     pipe = driver.pipe
-    if driver.cell.traffic["drive"] == "step":
-        orig = pipe.step
+    drive = "step" if driver.cell.traffic["drive"] == "step" else "run"
+    orig = getattr(pipe, drive)
+    drop = getattr(fault, "drops_clean", False)
 
-        def step(far, near, ms_in_sndcard_buf=40):
-            before = pipe.state
-            out, warn = orig(far, near, ms_in_sndcard_buf=ms_in_sndcard_buf)
+    def call(far, near, clean=None, ms_in_sndcard_buf=40):
+        before = pipe.state
+        res = orig(far, near, None if drop else clean,
+                   ms_in_sndcard_buf=ms_in_sndcard_buf)
+        if drive == "step":
+            out, warn = res
             return fault(pipe, before, out), warn
-        pipe.step = step
-    else:
-        orig = pipe.run
-
-        def run(far, near, ms_in_sndcard_buf=40):
-            before = pipe.state
-            return fault(pipe, before, orig(
-                far, near, ms_in_sndcard_buf=ms_in_sndcard_buf))
-        pipe.run = run
+        return fault(pipe, before, res)
+    setattr(pipe, drive, call)
 
 
 def state_unchanged(pipe, before, out):
@@ -81,7 +81,17 @@ def answer_altered(pipe, before, out):
     return out
 
 
-@pytest.mark.parametrize("workload", ["wb16k.rt", "nb8k.bulk"])
+def clean_dropped(pipe, before, out):
+    """The program called without its clean near input: a dual-input cell
+    served as a single-input one."""
+    return out
+
+
+clean_dropped.drops_clean = True
+
+
+@pytest.mark.parametrize("workload", ["wb16k.rt", "nb8k.bulk", "wb16k_ns.rt",
+                                      "wb16k_ns.bulk"])
 def test_sound_run_is_correct(tiny, workload):
     res = _run(tiny, workload)
     assert res["correct"] and res["failed"] == 0
@@ -89,9 +99,9 @@ def test_sound_run_is_correct(tiny, workload):
 
 @pytest.mark.parametrize("fault", [state_unchanged, half_batch,
                                    answer_altered])
-@pytest.mark.parametrize("workload", ["wb16k.rt", "nb8k.bulk"])
+@pytest.mark.parametrize("workload", ["wb16k.rt", "nb8k.bulk", "wb16k_ns.rt"])
 def test_faults_make_it_incorrect(tiny, workload, fault):
-    if fault is state_unchanged and workload == "wb16k.rt":
+    if fault is state_unchanged and workload.endswith(".rt"):
         seconds = 0.8       # past the startup, where the state matters
     else:
         seconds = 0.1
@@ -100,7 +110,14 @@ def test_faults_make_it_incorrect(tiny, workload, fault):
     assert res["checks"]["bad_samples"]["value"] > 0
 
 
-@pytest.mark.parametrize("workload", ["nb8k.rt", "wb16k.bulk"])
+@pytest.mark.parametrize("workload", ["wb16k_ns.rt", "wb16k_ns.bulk"])
+def test_clean_dropped_makes_it_incorrect(tiny, workload):
+    res = _run(tiny, workload, lambda d: _wrap(d, clean_dropped))
+    assert not res["correct"] and res["failed"] > 0
+    assert res["checks"]["bad_samples"]["value"] > 0
+
+
+@pytest.mark.parametrize("workload", ["nb8k.rt", "wb16k.bulk", "wb16k_ns.rt"])
 def test_control_is_incorrect(tiny, workload):
     with control.patched(control.abs_approx) as patch:
         res = _run(tiny, workload, patch, seconds=1.0)

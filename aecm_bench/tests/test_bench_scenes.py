@@ -3,10 +3,12 @@ stream, the near end holding that stream's own far end."""
 import json
 
 import numpy as np
+import pytest
 import torch
 
 from aecm_bench import scenes
-from aecm_bench.tests.conftest import BENCH
+from aecm_bench.harness import NoResult
+from aecm_bench.tests.conftest import BENCH, NS_GAIN_DB
 
 PARAMS = scenes.SceneParams.from_traffic(
     json.loads((BENCH / "traffic" / "rt16k.json").read_text()))
@@ -19,7 +21,8 @@ def _make(seed, n=5, rate=8000, period=1):
 def test_same_seed_same_scenes_and_large_seeds():
     seed = 2**31 + 987654321
     a, b = _make(seed), _make(seed)
-    for x, y in zip(a, b):
+    assert a.clean is None and b.clean is None
+    for x, y in zip(a[:3], b[:3]):
         assert torch.equal(x, y)
     c = _make(seed + 1)
     assert not torch.equal(a.far, c.far)
@@ -86,3 +89,44 @@ def test_talk_and_levels_follow_the_traffic():
     dbov = 20 * np.log10(rms / scenes.FULL_SCALE)
     lo, hi = PARAMS.speech_dbov
     assert lo <= dbov <= hi
+
+
+def test_traffic_without_ns_gain_reads_as_before():
+    assert PARAMS.ns_noise_gain_db is None
+    tr = json.loads((BENCH / "traffic" / "rt16k.json").read_text())
+    tr["scene"]["ns_noise_gain_db"] = NS_GAIN_DB
+    assert scenes.SceneParams.from_traffic(tr) == PARAMS._replace(
+        ns_noise_gain_db=NS_GAIN_DB)
+
+
+@pytest.mark.parametrize("rate", [8000, 16000])
+def test_clean_near_leaves_the_single_input_scene_as_it_was(rate):
+    """Two near inputs draw nothing new: far, near and ms are the
+    single-input scene's, bit for bit; the clean near end is the near end
+    with its noise scaled by ns_noise_gain_db (0 dB: the near end itself)."""
+    seed = 2**32 + 12345
+    one = scenes.make_scenes(PARAMS, 5, rate, 1, seed, "cpu")
+    ns = PARAMS._replace(ns_noise_gain_db=NS_GAIN_DB)
+    two = scenes.make_scenes(ns, 5, rate, 1, seed, "cpu", near_inputs=2)
+    for x, y in zip(one[:3], two[:3]):
+        assert torch.equal(x, y)
+    assert two.clean.dtype == torch.int16 and two.clean.shape == one.near.shape
+    diff = (two.near.double() - two.clean.double()).numpy()
+    assert diff.any()
+    # what the clean end lacks is 1 - 10^(-12/20) of the noise: a weaker
+    # signal than the near end's noise, and the speech and echo are kept
+    noise = scenes.stream_params(PARAMS, 5, seed)["noise_rms"]
+    rms = np.sqrt((diff ** 2).mean(axis=1))
+    want = (1 - 10 ** (NS_GAIN_DB / 20)) * noise
+    assert (np.abs(rms - want) <= 0.1 * want + 0.5).all()
+    flat = PARAMS._replace(ns_noise_gain_db=0)
+    same = scenes.make_scenes(flat, 5, rate, 1, seed, "cpu", near_inputs=2)
+    assert torch.equal(same.clean, same.near)
+    assert torch.equal(same.near, one.near)
+
+
+def test_two_near_inputs_need_the_ns_gain():
+    with pytest.raises(NoResult, match="ns_noise_gain_db"):
+        scenes.make_scenes(PARAMS, 2, 8000, 1, 1, "cpu", near_inputs=2)
+    with pytest.raises(NoResult, match="near_inputs 3"):
+        scenes.make_scenes(PARAMS, 2, 8000, 1, 1, "cpu", near_inputs=3)
